@@ -1,0 +1,55 @@
+"""High-level protocol API — binds a MABS model to an execution engine.
+
+Port of ``repro/core/protocol.py``. Engines are pluggable
+(``repro_torch.engine``): ``sequential`` (the oracle) and ``wavefront``
+(single-device vectorized waves). Both run the identical task stream and
+are bit-exact against each other under the strict hazard rule. Entry
+points run on the card unless ``device`` names another.
+
+``simulate_protocol`` (the discrete-event simulator) is not ported yet,
+nor are its ``ProtocolConfig`` fields (``n_workers``, ``tasks_per_cycle``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class ProtocolConfig:
+    window: int = 256          # recipe-window size (windowed engines)
+    strict: bool = True        # full hazard closure vs paper's record rule
+    engine: str = "wavefront"  # registry name (repro_torch.engine)
+    #: cross-window overlap knob: None keeps each engine's default (the
+    #: barrier); True is not ported yet and raises
+    overlap: bool | None = None
+
+
+def run_engine(model, state, total_tasks: int, *, seed: int = 0,
+               config: ProtocolConfig | None = None,
+               engine: str | None = None, device=None, **engine_kwargs):
+    """Run total_tasks through the engine named by ``engine`` (or
+    ``config.engine``) on ``device`` (default: the card); extra kwargs go
+    to the engine constructor. Returns (state, stats)."""
+    from repro_torch.engine import make_engine
+
+    cfg = config or ProtocolConfig()
+    if cfg.overlap is not None:
+        engine_kwargs.setdefault("overlap", cfg.overlap)
+    eng = make_engine(engine or cfg.engine, model, window=cfg.window,
+                      strict=cfg.strict, device=device, **engine_kwargs)
+    return eng.run(state, total_tasks, seed=seed)
+
+
+def run_wavefront(model, state, total_tasks: int, *, seed: int = 0,
+                  config: ProtocolConfig | None = None, device=None):
+    return run_engine(model, state, total_tasks, seed=seed, config=config,
+                      engine="wavefront", device=device)
+
+
+def run_oracle(model, state, total_tasks: int, *, seed: int = 0,
+               config: ProtocolConfig | None = None, device=None):
+    from repro_torch.engine.sequential import run_sequential
+
+    cfg = config or ProtocolConfig()
+    return run_sequential(model, state, total_tasks, seed=seed,
+                          window=cfg.window, device=device)

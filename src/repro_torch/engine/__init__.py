@@ -1,0 +1,32 @@
+"""Pluggable execution engines for the wavefront protocol.
+
+  base.py       — ``Engine`` interface, registry, shared windowed loop
+  sequential.py — chain-order oracle (``sequential``)
+  wavefront.py  — single-device vectorized waves (``wavefront``)
+
+Both engines run the identical task stream and are bit-exact under the
+strict hazard rule; pick one by name through ``make_engine`` (or
+``ProtocolConfig.engine`` at the ``repro_torch.core`` API level).
+"""
+from repro_torch.engine.base import (
+    ENGINES,
+    Engine,
+    WindowedEngine,
+    get_engine,
+    make_engine,
+    register_engine,
+)
+from repro_torch.engine.sequential import SequentialEngine, run_sequential
+from repro_torch.engine.wavefront import WavefrontEngine
+
+__all__ = [
+    "ENGINES",
+    "Engine",
+    "WindowedEngine",
+    "get_engine",
+    "make_engine",
+    "register_engine",
+    "SequentialEngine",
+    "run_sequential",
+    "WavefrontEngine",
+]

@@ -1,0 +1,46 @@
+"""Hand-written Hopper kernels for the scheduling hot spots.
+
+Each subpackage keeps the reference's three files:
+  <name>.py — the ctypes binding of the CUDA kernel in ``csrc/<name>.cu``
+              (built for sm_90a at first use, kernels/_build.py), with
+              its launch counter
+  ops.py    — the public wrapper; dispatches on the tensors' device
+  ref.py    — the plain PyTorch version of the same function
+
+Dispatch policy (``use_kernel``): a CUDA tensor launches the kernel, a CPU
+tensor takes the plain version. There is no other path: a kernel that
+fails to build or launch raises, it never falls back.
+
+Kernels:
+  conflict — W×W prefix-conflict matrix over task id footprints (the
+             protocol's O(W²) record check, paper §3.5)
+  levels   — wave levels over the conflict matrix (the level recurrence)
+"""
+from __future__ import annotations
+
+import torch
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: on ``device``, of
+    ``dtype`` and ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

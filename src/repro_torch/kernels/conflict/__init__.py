@@ -1,0 +1,3 @@
+from repro_torch.kernels.conflict.ops import conflict_matrix
+
+__all__ = ["conflict_matrix"]

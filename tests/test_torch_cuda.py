@@ -1,0 +1,121 @@
+"""The port on the card: the hand-written kernels against their plain
+PyTorch versions, bit for bit, and a small wavefront run through them
+against the port's oracle and its CPU run. Every test is marked ``cuda``
+and skips without a card. The file imports no JAX, so it runs on a GPU
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
+from repro_torch.core import ProtocolConfig, run_engine, run_oracle  # noqa: E402
+from repro_torch.kernels.conflict import conflict as conflict_kernel  # noqa: E402
+from repro_torch.kernels.conflict.ops import conflict_matrix  # noqa: E402
+from repro_torch.kernels.levels import levels as levels_kernel  # noqa: E402
+from repro_torch.kernels.levels.ops import wave_levels  # noqa: E402
+from repro_torch.mabs import SISModel, VoterModel  # noqa: E402
+from repro_torch.topology import watts_strogatz  # noqa: E402
+from repro_torch.utils import prng  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _footprint(seed, w, nr, nw, device):
+    gen = torch.Generator().manual_seed(seed)
+    ids = max(4, w // 2)
+    reads = torch.randint(0, ids, (w, nr), generator=gen, dtype=torch.int32)
+    writes = torch.randint(0, ids, (w, nw), generator=gen, dtype=torch.int32)
+    reads[torch.rand((w, nr), generator=gen) < 0.2] = -1
+    writes[torch.rand((w, nw), generator=gen) < 0.2] = -1
+    valid = torch.arange(w) < w - w // 7
+    return reads.to(device), writes.to(device), valid.to(device)
+
+
+@pytest.mark.parametrize("w", [1, 37, 129, 1000])
+@pytest.mark.parametrize("nr,nw", [(1, 1), (21, 2)])
+@pytest.mark.parametrize("strict", [True, False])
+def test_conflict_kernel_matches_plain(cuda_device, w, nr, nw, strict):
+    reads, writes, valid = _footprint(w + nr, w, nr, nw, cuda_device)
+    before = conflict_kernel.launches
+    got = conflict_matrix(reads, writes, valid, strict=strict)
+    assert conflict_kernel.launches == before + 1
+    want = conflict_matrix(reads, writes, valid, strict=strict,
+                           backend="torch")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w", [1, 37, 129, 1000, 4096])
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("lower", [True, False])
+def test_levels_kernel_matches_plain(cuda_device, w, with_base, lower):
+    gen = torch.Generator().manual_seed(w)
+    conf = torch.rand((w, w), generator=gen) < 0.02
+    if lower:
+        conf = conf.tril(diagonal=-1)
+    valid = torch.rand(w, generator=gen) < 0.85
+    base = (torch.randint(0, 4, (w,), generator=gen, dtype=torch.int32)
+            if with_base else None)
+    conf, valid = conf.to(cuda_device), valid.to(cuda_device)
+    base = None if base is None else base.to(cuda_device)
+    before = levels_kernel.launches
+    got = wave_levels(conf, valid, base=base)
+    assert levels_kernel.launches == before + 1
+    assert torch.equal(got, wave_levels(conf, valid, base=base,
+                                        backend="torch"))
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    reads, writes, valid = _footprint(0, 64, 3, 1, cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        conflict_kernel.conflict_matrix_cuda(reads.long(), writes, valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        conflict_kernel.conflict_matrix_cuda(reads.t().contiguous().t(),
+                                             writes, valid)
+    conf = torch.zeros((64, 64), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="window"):
+        levels_kernel.wave_levels_cuda(
+            torch.zeros((levels_kernel.MAX_WINDOW + 1,) * 2,
+                        dtype=torch.bool, device=cuda_device),
+            torch.ones(levels_kernel.MAX_WINDOW + 1, dtype=torch.bool,
+                       device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        levels_kernel.wave_levels_cuda(conf, valid[:10])
+
+
+@pytest.mark.parametrize("cls", [VoterModel, SISModel])
+def test_wavefront_on_card_matches_oracle_and_cpu(cuda_device, cls):
+    """A partial-tail run through both kernels: the final state equals
+    the port's oracle on the card and a CPU run; the stats equal the CPU
+    run's; each kernel launched once per window."""
+    topo = watts_strogatz(3000, 6, 0.1, prng.key(4, device=cuda_device),
+                          device=cuda_device)
+    model = cls(topo)
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    cfg = ProtocolConfig(window=256)
+    total = 256 * 6 + 100
+    conflict_kernel.launches = levels_kernel.launches = 0
+    out, stats = run_engine(model, state0, total, seed=6, config=cfg,
+                            device=cuda_device)
+    assert conflict_kernel.launches == levels_kernel.launches \
+        == stats["n_windows"] == 7
+    oracle = run_oracle(model, state0, total, seed=6, config=cfg,
+                        device=cuda_device)
+    cpu_model = cls(topo.to("cpu"))
+    cpu_out, cpu_stats = run_engine(
+        cpu_model, {k: v.cpu() for k, v in state0.items()}, total, seed=6,
+        config=cfg, device="cpu")
+    assert cpu_stats == stats
+    for k in out:
+        assert torch.equal(out[k], oracle[k])
+        assert torch.equal(out[k].cpu(), cpu_out[k])
