@@ -2,10 +2,10 @@
 
 A second package beside the JAX reference (``repro``), with the same
 subpackage names: ``core`` (model interface, records, wave execution,
-protocol API), ``engine`` (sequential oracle, wavefront engine),
-``mabs`` (voter, SIS), ``topology`` (padded-CSR graphs and generators),
-``kernels`` (hand-written Hopper kernels with their plain PyTorch
-versions), ``obs`` (stats registry), ``utils`` (the ``jax.random``-exact
+protocol API), ``engine`` (sequential oracle, the wavefront engine with
+and without cross-window overlap), ``mabs`` (voter, SIS, Axelrod, SIRS),
+``topology`` (padded-CSR graphs and generators), ``kernels``
+(hand-written Hopper kernels with their plain PyTorch versions), ``obs`` (stats registry), ``utils`` (the ``jax.random``-exact
 PRNG, device policy) and ``bridge`` (numpy hand-over from the reference).
 
 The port imports torch and numpy, never JAX and nothing of ``repro``.

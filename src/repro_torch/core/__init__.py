@@ -2,7 +2,7 @@
 
   model.py      — recipe/record model interface (paper §3.5)
   records.py    — vectorized worker records: prefix-conflict matrices,
-                  wave levels
+                  wave levels, the cross-window block and carry frontier
   wavefront.py  — per-window wave execution primitive
   protocol.py   — high-level API
 
@@ -17,7 +17,9 @@ from repro_torch.core.protocol import (
     run_wavefront,
 )
 from repro_torch.core.records import (
+    carry_frontier,
     critical_path_length,
+    cross_window_conflicts,
     prefix_conflicts,
     wave_levels,
     wave_levels_capped,
@@ -30,6 +32,8 @@ __all__ = [
     "MABSModel",
     "footprint_conflicts",
     "window_conflicts",
+    "cross_window_conflicts",
+    "carry_frontier",
     "ProtocolConfig",
     "run_oracle",
     "run_wavefront",

@@ -116,9 +116,24 @@ class MABSModel(abc.ABC):
     def execute_sequential(self, state: State, recipes: Recipes,
                            count: int) -> State:
         """Oracle: execute tasks one by one in chain order, as
-        ``execute_wave`` with one-hot masks."""
+        ``execute_wave`` with one-hot masks. Draws bound to the tasks'
+        keys (``_draws``) are made once for the window, not once per
+        task: they are a pure function of the keys."""
         first = next(iter(recipes.values()))
         slots = torch.arange(first.shape[0], device=first.device)
+        draws = self._draws(recipes)
         for i in range(count):
-            state = self.execute_wave(state, recipes, slots == i)
+            state = self._apply(state, recipes, draws, slots == i)
         return state
+
+    def _draws(self, recipes: Recipes) -> Any:
+        """The execution-time randomness of a window of tasks, drawn from
+        the keys in their recipes (None: the model draws nothing when it
+        executes). A model that draws splits ``execute_wave`` into
+        ``_apply(state, recipes, self._draws(recipes), mask)``."""
+        return None
+
+    def _apply(self, state: State, recipes: Recipes, draws: Any,
+               mask: torch.Tensor) -> State:
+        """``execute_wave`` with the window's draws given."""
+        return self.execute_wave(state, recipes, mask)

@@ -1,9 +1,10 @@
 """High-level protocol API — binds a MABS model to an execution engine.
 
 Port of ``repro/core/protocol.py``. Engines are pluggable
-(``repro_torch.engine``): ``sequential`` (the oracle) and ``wavefront``
-(single-device vectorized waves). Both run the identical task stream and
-are bit-exact against each other under the strict hazard rule. Entry
+(``repro_torch.engine``): ``sequential`` (the oracle), ``wavefront``
+(single-device vectorized waves) and ``wavefront_overlap`` (the same
+with cross-window overlap). All run the identical task stream and are
+bit-exact against each other under the strict hazard rule. Entry
 points run on the card unless ``device`` names another.
 
 ``simulate_protocol`` (the discrete-event simulator) is not ported yet,
@@ -19,8 +20,11 @@ class ProtocolConfig:
     window: int = 256          # recipe-window size (windowed engines)
     strict: bool = True        # full hazard closure vs paper's record rule
     engine: str = "wavefront"  # registry name (repro_torch.engine)
-    #: cross-window overlap knob: None keeps each engine's default (the
-    #: barrier); True is not ported yet and raises
+    #: cross-window overlap knob: True lets window k+1's head waves ride
+    #: into window k's tail drain (record carry-over, engine docs); False
+    #: forces the conservative window barrier; None (default) keeps each
+    #: engine's own default (``wavefront_overlap`` defaults on, the
+    #: others to the barrier)
     overlap: bool | None = None
 
 
@@ -29,13 +33,23 @@ def run_engine(model, state, total_tasks: int, *, seed: int = 0,
                engine: str | None = None, device=None, **engine_kwargs):
     """Run total_tasks through the engine named by ``engine`` (or
     ``config.engine``) on ``device`` (default: the card); extra kwargs go
-    to the engine constructor. Returns (state, stats)."""
-    from repro_torch.engine import make_engine
+    to the engine constructor (``overlap=...`` flips the cross-window
+    overlap knob, default from config). Returns (state, stats)."""
+    import inspect
+
+    from repro_torch.engine import get_engine, make_engine
 
     cfg = config or ProtocolConfig()
-    if cfg.overlap is not None:
-        engine_kwargs.setdefault("overlap", cfg.overlap)
-    eng = make_engine(engine or cfg.engine, model, window=cfg.window,
+    name = engine or cfg.engine
+    if cfg.overlap is not None and "overlap" not in engine_kwargs:
+        # inject only into constructors that take the knob: an engine
+        # registered without it keeps working for every cfg.overlap
+        params = inspect.signature(get_engine(name).__init__).parameters
+        if "overlap" in params or any(
+                p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params.values()):
+            engine_kwargs["overlap"] = cfg.overlap
+    eng = make_engine(name, model, window=cfg.window,
                       strict=cfg.strict, device=device, **engine_kwargs)
     return eng.run(state, total_tasks, seed=seed)
 

@@ -13,8 +13,11 @@ tasks j < i. Footprint models build it through the conflict kernel
 (kernels/levels): hand-written CUDA for tensors on the card, the plain
 PyTorch versions on the CPU.
 
-``cross_window_conflicts`` and ``carry_frontier`` (the overlap path) are
-not ported yet.
+The overlapped engine adds the record carry-over across a window
+boundary: ``cross_window_conflicts`` (the rectangular block between the
+next window's tasks and the previous window's not-yet-drained tail,
+through the conflict kernel's block entry point) and ``carry_frontier``
+(the per-task level floor that block imposes).
 """
 from __future__ import annotations
 
@@ -53,6 +56,56 @@ def window_conflicts(model, recipes, valid: torch.Tensor, *,
         return conflict_matrix(read_ids, write_ids, valid, strict=strict,
                                backend=backend)
     return prefix_conflicts(model.conflicts, recipes, valid, strict=strict)
+
+
+def cross_window_conflicts(model, recipes_prev, valid_prev: torch.Tensor,
+                           recipes_next, valid_next: torch.Tensor, *,
+                           strict: bool = True,
+                           backend: str | None = None) -> torch.Tensor:
+    """Cross-window conflict block [W_next, W_prev] (bool).
+
+    Row i = task i of the *later* window (k+1), column j = task j of the
+    *earlier* window (k): C[i, j] iff next-task-i conflicts with
+    prev-task-j. Every prev task precedes every next task in chain order,
+    so the block is a full rectangle, masked by validity only.
+    ``valid_prev`` doubles as the *alive* mask of window k's not-yet-
+    drained tail: columns of already-executed tasks impose nothing.
+
+    Footprint models go through the conflict kernel's block entry point;
+    predicate-only models through the broadcast pairwise predicate.
+    """
+    fp_next = model.task_footprint(recipes_next)
+    if fp_next is not None:
+        from repro_torch.kernels.conflict.ops import conflict_block
+
+        reads_n, writes_n = fp_next
+        reads_p, writes_p = model.task_footprint(recipes_prev)
+        return conflict_block(reads_n, writes_n, reads_p, writes_p,
+                              valid_next, valid_prev, strict=strict,
+                              backend=backend)
+    rows = {k: x[:, None] for k, x in recipes_next.items()}
+    cols = {k: x[None, :] for k, x in recipes_prev.items()}
+    conf = model.conflicts(rows, cols, strict=strict)
+    return conf & valid_next[:, None] & valid_prev[None, :]
+
+
+def carry_frontier(cross: torch.Tensor,
+                   levels_prev: torch.Tensor) -> torch.Tensor:
+    """Per-task level floor imposed by the previous window's tail.
+
+        carry[i] = max{ levels_prev[j] + 1 : cross[i, j] }   (else 0)
+
+    ``levels_prev`` holds the previous window's *remaining* levels on the
+    current level clock (-1 = already drained or padded), so a drained
+    task contributes ``-1 + 1 = 0`` — no constraint. Fed to
+    ``wave_levels(base=...)`` it pins every next-window task strictly
+    after the tail waves it conflicts with. [W_next] int32.
+    """
+    gated = torch.where(cross, levels_prev.to(torch.int32)[None, :] + 1, 0)
+    if gated.shape[1] == 0:
+        return torch.zeros(gated.shape[0], dtype=torch.int32,
+                           device=gated.device)
+    return gated.amax(dim=1).to(torch.int32)
 
 
 def wave_levels(conflicts: torch.Tensor, valid: torch.Tensor, *,

@@ -1,29 +1,41 @@
-// Prefix-conflict matrix for one window of tasks — Hopper (sm_90a).
+// Conflict kernels over task id footprints — Hopper (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/conflict/conflict.py
-// (conflict_matrix_pallas, pallas_call at :150; _kernel :87,
-// _hazard_tile :54).
+// Two entry points share one per-cell hazard test (hazard() below), as
+// the TPU kernels share _hazard_tile:
 //
-// Computes C[i, j] = 1 iff j < i, valid[i], valid[j] and later task i
-// conflicts with earlier task j on its id footprint:
+//   conflict_matrix  replaces src/repro/kernels/conflict/conflict.py
+//                    conflict_matrix_pallas (pallas_call at :150; _kernel
+//                    :87). The [W, W] prefix-conflict matrix of one window:
+//                    C[i, j] = 1 iff j < i, valid[i], valid[j] and hazard.
+//   conflict_block   replaces conflict_block_pallas (pallas_call at :219;
+//                    _block_kernel :162). The [Wi, Wj] cross-window block:
+//                    row i is a task of the later window, column j a task
+//                    of the earlier one, so every j precedes every i and
+//                    there is no triangle: C[i, j] = 1 iff valid_i[i],
+//                    valid_j[j] and hazard. The two sides carry their own
+//                    slot counts (nr_i, nw_i) and (nr_j, nw_j).
+//
+// hazard(i, j): later task i conflicts with earlier task j iff
 //   flow   W_j ∩ R_i ≠ ∅                  (always; the paper's record rule)
 //   output W_j ∩ W_i ≠ ∅, anti W_i ∩ R_j ≠ ∅   (strict closure)
 // Ids < 0 are unused slots. Output is one byte per cell (torch.bool).
 //
-// What bounds it on this card: bytes. The W² output bytes dominate
+// What bounds them on this card: bytes. The output bytes dominate
 // (W = 4096: 16.8 MB against ~0.4 MB of ids); the compares are
-// W²/2 · (nr·nw + nw·nw + nw·nr) integer operations, of the same order of
+// nr·nw + nw·nw + nw·nr integer operations per cell, of the same order of
 // time at the CUDA-core rate for SIS's nr = 1 + max_degree.
 //
 // Design: one 32×32 CTA per output tile, one thread per cell, so any W
 // works without padding the inputs (edge threads mask themselves). The
 // tile's row-side ids (task i) and column-side ids (task j) are staged in
-// shared memory once and reused by all 1024 cells; the column side is
-// stored transposed ([slot][tile column]) so a warp — one tile row, 32
-// consecutive j — reads 32 consecutive words, free of bank conflicts,
+// shared memory once (stage_tile, one flat pass) and reused by all 1024
+// cells; the column side is stored transposed ([slot][tile column]) so a
+// warp — one tile row, 32 consecutive j — reads 32 consecutive words, free
+// of bank conflicts,
 // while the row side is one broadcast word per warp. A warp's 32 output
-// bytes are contiguous. Tiles strictly above the diagonal only write
-// zeros. Kept simple: one byte per thread per store, no vector stores.
+// bytes are contiguous. In the prefix matrix, tiles strictly above the
+// diagonal only write zeros; the block has no such tiles. Kept simple: one
+// byte per thread per store, no vector stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +43,64 @@
 namespace {
 
 constexpr int TILE = 32;
+
+// One cell's hazard test. r_i/w_i: the row task's nr_i read and nw_i write
+// ids, contiguous. r_j/w_j: the column task's ids in the transposed tile
+// layout, slot c at [c * TILE].
+__device__ __forceinline__ bool hazard(const int32_t* r_i, int nr_i,
+                                       const int32_t* w_i, int nw_i,
+                                       const int32_t* r_j, int nr_j,
+                                       const int32_t* w_j, int nw_j,
+                                       int strict) {
+  bool hit = false;
+  for (int a = 0; a < nw_j && !hit; ++a) {
+    const int32_t wj = w_j[a * TILE];
+    if (wj < 0) continue;
+    for (int c = 0; c < nr_i; ++c) hit |= (r_i[c] == wj);  // flow
+    if (strict)
+      for (int c = 0; c < nw_i; ++c) hit |= (w_i[c] == wj);  // output
+  }
+  if (strict) {
+    for (int a = 0; a < nw_i && !hit; ++a) {  // anti
+      const int32_t wi = w_i[a];
+      if (wi < 0) continue;
+      for (int c = 0; c < nr_j; ++c) hit |= (r_j[c * TILE] == wi);
+    }
+  }
+  return hit;
+}
+
+// Stage one tile's ids into shared memory, four segments back to back:
+// the row side's reads [TILE][nr_i] and writes [TILE][nw_i], then the
+// column side's reads [nr_j][TILE] and writes [nw_j][TILE], transposed.
+// Rows past the window read -1. One flat loop over all four segments, so
+// every load of a thread's first pass is in flight at once: staging is
+// latency-bound, and a loop per segment would wait out one load latency
+// after another.
+__device__ __forceinline__ void stage_tile(
+    int32_t* smem, const int32_t* reads_i, const int32_t* writes_i,
+    const int32_t* reads_j, const int32_t* writes_j, int base_i, int wi,
+    int base_j, int wj, int nr_i, int nw_i, int nr_j, int nw_j, int tid) {
+  const int s1 = TILE * nr_i, s2 = s1 + TILE * nw_i;
+  const int s3 = s2 + TILE * nr_j, s4 = s3 + TILE * nw_j;
+  for (int e = tid; e < s4; e += TILE * TILE) {
+    const int32_t* ids;
+    int n, base, w, start;
+    if (e < s1) {
+      ids = reads_i, n = nr_i, base = base_i, w = wi, start = 0;
+    } else if (e < s2) {
+      ids = writes_i, n = nw_i, base = base_i, w = wi, start = s1;
+    } else if (e < s3) {
+      ids = reads_j, n = nr_j, base = base_j, w = wj, start = s2;
+    } else {
+      ids = writes_j, n = nw_j, base = base_j, w = wj, start = s3;
+    }
+    const int k = e - start, t = k / n, c = k - t * n;
+    const int g = base + t;
+    smem[start + (start >= s2 ? c * TILE + t : k)] =
+        g < w ? ids[(size_t)g * n + c] : -1;
+  }
+}
 
 __global__ void __launch_bounds__(TILE * TILE)
 conflict_matrix_kernel(const int32_t* __restrict__ reads,
@@ -54,47 +124,59 @@ conflict_matrix_kernel(const int32_t* __restrict__ reads,
   int32_t* r_j = w_i + TILE * nw;   // [nr][TILE]  column side, transposed
   int32_t* w_j = r_j + nr * TILE;   // [nw][TILE]
 
-  const int tid = ty * TILE + tx;
-  for (int e = tid; e < TILE * nr; e += TILE * TILE) {
-    const int t = e / nr, c = e - t * nr;
-    const int gi = bi * TILE + t, gj = bj * TILE + t;
-    r_i[e] = gi < w ? reads[(size_t)gi * nr + c] : -1;
-    r_j[c * TILE + t] = gj < w ? reads[(size_t)gj * nr + c] : -1;
-  }
-  for (int e = tid; e < TILE * nw; e += TILE * TILE) {
-    const int t = e / nw, c = e - t * nw;
-    const int gi = bi * TILE + t, gj = bj * TILE + t;
-    w_i[e] = gi < w ? writes[(size_t)gi * nw + c] : -1;
-    w_j[c * TILE + t] = gj < w ? writes[(size_t)gj * nw + c] : -1;
-  }
+  stage_tile(smem, reads, writes, reads, writes, bi * TILE, w, bj * TILE, w,
+             nr, nw, nr, nw, ty * TILE + tx);
   __syncthreads();
 
   if (i >= w || j >= w) return;
-  uint8_t hit = 0;
-  if (j < i && valid[i] && valid[j]) {
-    for (int a = 0; a < nw && !hit; ++a) {
-      const int32_t wj = w_j[a * TILE + tx];
-      if (wj < 0) continue;
-      for (int c = 0; c < nr; ++c) hit |= (r_i[ty * nr + c] == wj);  // flow
-      if (strict)
-        for (int c = 0; c < nw; ++c) hit |= (w_i[ty * nw + c] == wj);  // output
-    }
-    if (strict) {
-      for (int a = 0; a < nw && !hit; ++a) {  // anti
-        const int32_t wi = w_i[ty * nw + a];
-        if (wi < 0) continue;
-        for (int c = 0; c < nr; ++c) hit |= (r_j[c * TILE + tx] == wi);
-      }
-    }
-  }
+  const bool hit = j < i && valid[i] && valid[j] &&
+                   hazard(r_i + ty * nr, nr, w_i + ty * nw, nw, r_j + tx, nr,
+                          w_j + tx, nw, strict);
   out[(size_t)i * w + j] = hit;
+}
+
+__global__ void __launch_bounds__(TILE * TILE)
+conflict_block_kernel(const int32_t* __restrict__ reads_i,
+                      const int32_t* __restrict__ writes_i,
+                      const int32_t* __restrict__ reads_j,
+                      const int32_t* __restrict__ writes_j,
+                      const uint8_t* __restrict__ valid_i,
+                      const uint8_t* __restrict__ valid_j,
+                      uint8_t* __restrict__ out, int wi, int wj, int nr_i,
+                      int nw_i, int nr_j, int nw_j, int strict) {
+  extern __shared__ int32_t smem[];
+  const int bi = blockIdx.y, bj = blockIdx.x;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i = bi * TILE + ty;  // later window's task (row)
+  const int j = bj * TILE + tx;  // earlier window's task (column)
+
+  int32_t* r_i = smem;                // [TILE][nr_i]  row side
+  int32_t* w_i = r_i + TILE * nr_i;   // [TILE][nw_i]
+  int32_t* r_j = w_i + TILE * nw_i;   // [nr_j][TILE]  column side, transposed
+  int32_t* w_j = r_j + nr_j * TILE;   // [nw_j][TILE]
+
+  stage_tile(smem, reads_i, writes_i, reads_j, writes_j, bi * TILE, wi,
+             bj * TILE, wj, nr_i, nw_i, nr_j, nw_j, ty * TILE + tx);
+  __syncthreads();
+
+  if (i >= wi || j >= wj) return;
+  const bool hit = valid_i[i] && valid_j[j] &&
+                   hazard(r_i + ty * nr_i, nr_i, w_i + ty * nw_i, nw_i,
+                          r_j + tx, nr_j, w_j + tx, nw_j, strict);
+  out[(size_t)i * wj + j] = hit;
 }
 
 }  // namespace
 
-// Shared memory a launch needs for nr read slots and nw write slots.
+// Shared memory a prefix-matrix launch needs for nr read and nw write slots.
 extern "C" int conflict_matrix_smem_bytes(int nr, int nw) {
   return 2 * TILE * (nr + nw) * (int)sizeof(int32_t);
+}
+
+// Shared memory a block launch needs for the two sides' slot counts.
+extern "C" int conflict_block_smem_bytes(int nr_i, int nw_i, int nr_j,
+                                         int nw_j) {
+  return TILE * (nr_i + nw_i + nr_j + nw_j) * (int)sizeof(int32_t);
 }
 
 // reads [w, nr] int32, writes [w, nw] int32, valid [w] bool, out [w, w]
@@ -111,5 +193,33 @@ extern "C" int conflict_matrix_launch(const void* reads, const void* writes,
   conflict_matrix_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const int32_t*)reads, (const int32_t*)writes, (const uint8_t*)valid,
       (uint8_t*)out, w, nr, nw, strict);
+  return (int)cudaGetLastError();
+}
+
+// reads_i [wi, nr_i], writes_i [wi, nw_i], reads_j [wj, nr_j], writes_j
+// [wj, nw_j] int32, valid_i [wi], valid_j [wj] bool, out [wi, wj] bool;
+// all contiguous on the device. Launches on `stream`; returns
+// cudaGetLastError() (0 = launched).
+extern "C" int conflict_block_launch(const void* reads_i,
+                                     const void* writes_i,
+                                     const void* reads_j,
+                                     const void* writes_j,
+                                     const void* valid_i,
+                                     const void* valid_j, void* out, int wi,
+                                     int wj, int nr_i, int nw_i, int nr_j,
+                                     int nw_j, int strict, void* stream) {
+  if (wi <= 0 || wj <= 0 || nr_i <= 0 || nw_i <= 0 || nr_j <= 0 ||
+      nw_j <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_i = (wi + TILE - 1) / TILE, tiles_j = (wj + TILE - 1) / TILE;
+  if (tiles_i > 65535) return (int)cudaErrorInvalidValue;  // grid.y limit
+  const dim3 grid(tiles_j, tiles_i), block(TILE, TILE);
+  const size_t smem =
+      (size_t)conflict_block_smem_bytes(nr_i, nw_i, nr_j, nw_j);
+  conflict_block_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)reads_i, (const int32_t*)writes_i,
+      (const int32_t*)reads_j, (const int32_t*)writes_j,
+      (const uint8_t*)valid_i, (const uint8_t*)valid_j, (uint8_t*)out, wi,
+      wj, nr_i, nw_i, nr_j, nw_j, strict);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,11 @@
 
   base.py       — ``Engine`` interface, registry, shared windowed loop
   sequential.py — chain-order oracle (``sequential``)
-  wavefront.py  — single-device vectorized waves (``wavefront``)
+  wavefront.py  — single-device vectorized waves (``wavefront``), and the
+                  same with cross-window overlap on
+                  (``wavefront_overlap``)
 
-Both engines run the identical task stream and are bit-exact under the
+All engines run the identical task stream and are bit-exact under the
 strict hazard rule; pick one by name through ``make_engine`` (or
 ``ProtocolConfig.engine`` at the ``repro_torch.core`` API level).
 """
@@ -17,7 +19,10 @@ from repro_torch.engine.base import (
     register_engine,
 )
 from repro_torch.engine.sequential import SequentialEngine, run_sequential
-from repro_torch.engine.wavefront import WavefrontEngine
+from repro_torch.engine.wavefront import (
+    WavefrontEngine,
+    WavefrontOverlapEngine,
+)
 
 __all__ = [
     "ENGINES",
@@ -29,4 +34,5 @@ __all__ = [
     "SequentialEngine",
     "run_sequential",
     "WavefrontEngine",
+    "WavefrontOverlapEngine",
 ]

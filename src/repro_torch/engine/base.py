@@ -14,9 +14,10 @@ bit-identical state under the strict hazard rule.
 scheduled (conflict matrix + wave levels) and then executed wave by wave,
 with a double-buffered window pipeline — window t+1's schedule is
 enqueued before window t's waves, on the one stream that keeps the order.
+With ``overlap`` on, the window boundary stops being a barrier (the
+record carry-over, ``WindowedEngine._run_overlapped``).
 
-Not ported yet: cross-window overlap (``overlap=True`` raises), the
-tracing hooks and the compiled-cost hooks.
+Not ported yet: the tracing hooks and the compiled-cost hooks.
 """
 from __future__ import annotations
 
@@ -25,7 +26,12 @@ from typing import Any, Type
 
 import torch
 
-from repro_torch.core.records import wave_levels, window_conflicts
+from repro_torch.core.records import (
+    carry_frontier,
+    cross_window_conflicts,
+    wave_levels,
+    window_conflicts,
+)
 from repro_torch.obs.stats import finalize_stats
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -61,12 +67,17 @@ class Engine(abc.ABC):
     #: registry key
     name: str = "engine"
 
+    #: default for the cross-window overlap knob (the ``*_overlap``
+    #: registry entries flip it; ``overlap=None`` keeps the class default)
+    default_overlap: bool = False
+
     def __init__(self, model, *, window: int = 256, strict: bool = True,
                  overlap: bool | None = None, device=None):
         self.model = model
         self.window = int(window)
         self.strict = strict
-        self.overlap = bool(overlap)
+        self.overlap = (self.default_overlap if overlap is None
+                        else bool(overlap))
         self.device = resolve_device(device)
         topo = getattr(model, "topology", None)
         if topo is not None and topo.device != self.device:
@@ -92,29 +103,61 @@ class Engine(abc.ABC):
 class WindowedEngine(Engine):
     """Shared streaming loop: window t+1 is scheduled before window t
     executes. Subclasses provide ``_execute(state, sched)`` -> (state,
-    n_waves) for one scheduled window."""
+    n_waves) for one scheduled window.
 
-    def _schedule(self, base_key, start: int, count: int):
-        """Create one window of tasks and reduce it to wave levels
-        (conflict + levels kernels). Always W tasks: the last window is
-        masked by ``valid``, as in the reference, so its schedule
-        matches. Returns (recipes, valid, levels), all enqueued on the
-        device, none waited for."""
+    **Cross-window overlap** (``overlap=True``, or the ``*_overlap``
+    registry entries): when window k+1 is scheduled, the boundary step
+    checks its tasks against window k's not-yet-drained tail
+    (``cross_window_conflicts`` through the conflict kernel's block entry
+    point), turns that block into a per-task level floor
+    (``carry_frontier``) and re-levels window k+1 on it (the levels
+    kernel with ``base``). Execution then runs *fused* waves: each wave
+    of window k's drain also runs the window k+1 tasks of the same level,
+    which never conflict with it by construction of the floor, so the
+    result stays bit-exact. At most two windows are in flight. Overlapped
+    subclasses provide
+      * ``_schedule_ov(base_key, start, count)`` -> ``(recipes, valid,
+        conf, extra)``, the conflict matrix kept for the re-leveling;
+      * ``_execute_pair(state, cur, lv_cur, nxt, lv_nxt)`` -> ``(state,
+        n_waves, lv_nxt_rebased)``, the fused drain of ``cur``;
+      * ``_execute_drain(state, cur, lv)`` -> ``(state, n_waves)``, the
+        last window's drain with no partner.
+    """
+
+    #: overlapped-mode hooks; None = barrier-only engine
+    _schedule_ov = None
+    _execute_pair = None
+    _execute_drain = None
+
+    def _schedule_window_ov(self, base_key, start: int, count: int):
+        """Create one window of tasks and its conflict matrix (conflict
+        kernel). Always W tasks: the last window is masked by ``valid``,
+        as in the reference, so its schedule matches. Returns (recipes,
+        valid, conf), all enqueued on the device, none waited for."""
         recipes = self.model.create_tasks(base_key, start, self.window)
         valid = torch.arange(self.window, device=self.device) < count
         conf = window_conflicts(self.model, recipes, valid,
                                 strict=self.strict)
+        return recipes, valid, conf
+
+    def _schedule(self, base_key, start: int, count: int):
+        """One window reduced to wave levels (conflict + levels kernels):
+        (recipes, valid, levels)."""
+        recipes, valid, conf = self._schedule_window_ov(base_key, start,
+                                                        count)
         return recipes, valid, wave_levels(conf, valid)
 
     def _execute(self, state, sched):  # pragma: no cover - abstract
         raise NotImplementedError
 
     def run(self, state: Any, total_tasks: int, *, seed: int = 0):
-        if self.overlap:
-            raise ValueError(
-                f"engine {self.name!r}: cross-window overlap is not ported "
-                "yet; use overlap=False (the barrier loop)")
         self._check_state(state)
+        if self.overlap:
+            if self._schedule_ov is None:
+                raise ValueError(
+                    f"engine {self.name!r} does not implement cross-window "
+                    "overlap; use overlap=False (the barrier fallback)")
+            return self._run_overlapped(state, total_tasks, seed=seed)
         base_key = prng.key(seed, device=self.device)
         t = 0
         n_windows = 0
@@ -138,5 +181,94 @@ class WindowedEngine(Engine):
             "total_waves": total_waves,
             "mean_parallelism": total_tasks / max(total_waves, 1),
             "overlap": False,
+        }
+        return state, finalize_stats(stats)
+
+    # ------------------------------------------------- cross-window overlap
+    def _boundary(self, rec_a, lv_a, rec_b, valid_b, conf_b):
+        """The boundary step k -> k+1: cross-window record check, carry
+        frontier, floored re-leveling, and the per-boundary stats — all
+        enqueued on the device, none read here. Returns (lv_b, (depth,
+        early, carry_mean, carry_max)), each stat a 0-d tensor: depth,
+        early and carry_max int64, carry_mean float32 (the reference's
+        int32 sum over an int32 count is a float32 division)."""
+        w = self.window
+        alive_a = lv_a >= 0          # window k's not-yet-drained tail
+        cross = cross_window_conflicts(self.model, rec_a, alive_a, rec_b,
+                                       valid_b, strict=self.strict)
+        carry = carry_frontier(cross, lv_a)
+        lv_b = wave_levels(conf_b, valid_b, base=carry)
+        n_waves_a = lv_a.max() + 1
+        # overlap depth: tail waves of k during which k+1 tasks run; the
+        # levels of early tasks are < n_waves_a <= w, the rest go to the
+        # scratch slot w (a scatter of a scalar: assigning a host-side
+        # True would be a blocking copy, a host sync per boundary)
+        early = valid_b & (lv_b < n_waves_a)
+        occ = torch.zeros(w + 1, dtype=torch.int32,
+                          device=lv_b.device).scatter_(
+                              0, torch.where(early, lv_b.long(), w), 1)
+        carry_v = torch.where(valid_b, carry, 0)
+        n_valid = valid_b.sum().clamp(min=1)
+        bstats = (occ[:w].sum(), early.sum(),
+                  carry_v.sum().to(torch.float32) / n_valid.to(torch.float32),
+                  carry_v.max().to(torch.int64))
+        return lv_b, bstats
+
+    def _run_overlapped(self, state: Any, total_tasks: int, *,
+                        seed: int = 0):
+        """The overlapped loop. One host sync per window: the fused
+        drain reads its wave count; the boundary stats stay on the device
+        and are read once after the loop."""
+        base_key = prng.key(seed, device=self.device)
+        t = 0
+        n_windows = 0
+        total_waves = 0
+        bstats = []
+        cur = self._schedule_ov(base_key, 0, min(self.window, total_tasks))
+        lv = wave_levels(cur[2], cur[1])  # first window: no carry floor
+        while t < total_tasks:
+            k = min(self.window, total_tasks - t)
+            if t + k < total_tasks:
+                # enqueue window k+1's schedule and boundary (cross block,
+                # carry frontier, floored levels) before the fused drain
+                # of window k, on the one stream
+                nxt = self._schedule_ov(base_key, t + k,
+                                        min(self.window, total_tasks - t - k))
+                lv_nxt, b = self._boundary(cur[0], lv, nxt[0], nxt[1],
+                                           nxt[2])
+                bstats.append(b)
+                state, n_waves, lv_nxt = self._execute_pair(state, cur, lv,
+                                                            nxt, lv_nxt)
+                cur, lv = nxt, lv_nxt
+            else:
+                # last window: no partner — drain through the barrier
+                # executor
+                state, n_waves = self._execute_drain(state, cur, lv)
+            total_waves += n_waves
+            n_windows += 1
+            t += k
+        if bstats:  # read the per-boundary stats once
+            ints = torch.stack([torch.stack([b[0], b[1], b[3]])
+                                for b in bstats]).cpu().tolist()
+            cmeans = torch.stack([b[2] for b in bstats]).cpu().tolist()
+        else:
+            ints, cmeans = [], []
+        depths = [r[0] for r in ints]
+        earlies = [r[1] for r in ints]
+        cmaxs = [r[2] for r in ints]
+        stats = {
+            "total_tasks": total_tasks,
+            "n_windows": n_windows,
+            "total_waves": total_waves,
+            "mean_parallelism": total_tasks / max(total_waves, 1),
+            "overlap": True,
+            "n_boundaries": len(bstats),
+            "mean_overlap_depth": (sum(depths) / len(depths)
+                                   if depths else 0.0),
+            "max_overlap_depth": max(depths, default=0),
+            "overlap_tasks_early": sum(earlies),
+            "carry_frontier_mean": (sum(cmeans) / len(cmeans)
+                                    if cmeans else 0.0),
+            "carry_frontier_max": max(cmaxs, default=0),
         }
         return state, finalize_stats(stats)

@@ -13,7 +13,8 @@ fails to build or launch raises, it never falls back.
 
 Kernels:
   conflict — W×W prefix-conflict matrix over task id footprints (the
-             protocol's O(W²) record check, paper §3.5)
+             protocol's O(W²) record check, paper §3.5), and the Wi×Wj
+             cross-window block of the overlapped engine
   levels   — wave levels over the conflict matrix (the level recurrence)
 """
 from __future__ import annotations

@@ -1,3 +1,3 @@
-from repro_torch.kernels.conflict.ops import conflict_matrix
+from repro_torch.kernels.conflict.ops import conflict_block, conflict_matrix
 
-__all__ = ["conflict_matrix"]
+__all__ = ["conflict_matrix", "conflict_block"]

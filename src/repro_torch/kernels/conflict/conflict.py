@@ -1,10 +1,17 @@
-"""Binding of the CUDA prefix-conflict kernel (``csrc/conflict.cu``).
+"""Bindings of the CUDA conflict kernels (``csrc/conflict.cu``).
 
-Port of ``repro/kernels/conflict/conflict.py::conflict_matrix_pallas``:
-the [W, W] strictly-lower-triangular prefix-conflict matrix from task id
-footprints, one 32×32 CTA per output tile (see the source's note for the
-design and what bounds it). ``launches`` counts the launches of this
-wrapper; nothing else changes it.
+Ports of ``repro/kernels/conflict/conflict.py``, one 32×32 CTA per output
+tile (see the source's note for the design and what bounds it):
+
+  conflict_matrix_cuda  ``conflict_matrix_pallas``: the [W, W] strictly-
+                        lower-triangular prefix-conflict matrix of one
+                        window; counted by ``launches``
+  conflict_block_cuda   ``conflict_block_pallas``: the [Wi, Wj] cross-
+                        window block (later window's rows, earlier
+                        window's columns, validity mask only); counted by
+                        ``block_launches``
+
+Each counter changes only where its wrapper launches its kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ from repro_torch.kernels import _build, check_tensor
 
 #: number of kernel launches made through ``conflict_matrix_cuda``
 launches = 0
+#: number of kernel launches made through ``conflict_block_cuda``
+block_launches = 0
 
 _SMEM_LIMIT = 48 * 1024
 _lib = None
@@ -33,6 +42,11 @@ def _load():
         lib.conflict_matrix_smem_bytes.argtypes = [ctypes.c_int,
                                                    ctypes.c_int]
         lib.conflict_matrix_smem_bytes.restype = ctypes.c_int
+        lib.conflict_block_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.conflict_block_launch.restype = ctypes.c_int
+        lib.conflict_block_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.conflict_block_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -70,4 +84,52 @@ def conflict_matrix_cuda(read_ids: torch.Tensor, write_ids: torch.Tensor,
         raise RuntimeError(f"conflict_matrix kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    return out
+
+
+def conflict_block_cuda(reads_i: torch.Tensor, writes_i: torch.Tensor,
+                        reads_j: torch.Tensor, writes_j: torch.Tensor,
+                        valid_i: torch.Tensor, valid_j: torch.Tensor, *,
+                        strict: bool = True) -> torch.Tensor:
+    """reads_i [Wi, nr_i], writes_i [Wi, nw_i], reads_j [Wj, nr_j],
+    writes_j [Wj, nw_j] int32 (-1 = unused slot), valid_i [Wi], valid_j
+    [Wj] bool, all contiguous on one CUDA device -> [Wi, Wj] bool."""
+    global block_launches
+    if reads_i.device.type != "cuda":
+        raise ValueError("conflict_block_cuda takes CUDA tensors; the "
+                         "plain version is kernels/conflict/ref.py")
+    for name, t in (("reads_i", reads_i), ("writes_i", writes_i),
+                    ("reads_j", reads_j), ("writes_j", writes_j)):
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be a [W, n] tensor")
+    wi, nr_i = reads_i.shape
+    wj, nr_j = reads_j.shape
+    nw_i, nw_j = writes_i.shape[1], writes_j.shape[1]
+    if 0 in (wi, wj, nr_i, nw_i, nr_j, nw_j):
+        raise ValueError(f"empty footprint: Wi={wi}, Wj={wj}, nr_i={nr_i}, "
+                         f"nw_i={nw_i}, nr_j={nr_j}, nw_j={nw_j}")
+    dev = reads_i.device
+    check_tensor("reads_i", reads_i, torch.int32, (wi, nr_i), dev)
+    check_tensor("writes_i", writes_i, torch.int32, (wi, nw_i), dev)
+    check_tensor("reads_j", reads_j, torch.int32, (wj, nr_j), dev)
+    check_tensor("writes_j", writes_j, torch.int32, (wj, nw_j), dev)
+    check_tensor("valid_i", valid_i, torch.bool, (wi,), dev)
+    check_tensor("valid_j", valid_j, torch.bool, (wj,), dev)
+    lib = _load()
+    if lib.conflict_block_smem_bytes(nr_i, nw_i, nr_j, nw_j) > _SMEM_LIMIT:
+        raise ValueError(f"footprints too wide for one tile's shared "
+                         f"memory: nr_i={nr_i}, nw_i={nw_i}, nr_j={nr_j}, "
+                         f"nw_j={nw_j}")
+    out = torch.empty((wi, wj), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.conflict_block_launch(
+            reads_i.data_ptr(), writes_i.data_ptr(), reads_j.data_ptr(),
+            writes_j.data_ptr(), valid_i.data_ptr(), valid_j.data_ptr(),
+            out.data_ptr(), wi, wj, nr_i, nw_i, nr_j, nw_j, int(strict),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"conflict_block kernel launch failed: CUDA "
+                           f"error {rc}")
+    block_launches += 1
     return out

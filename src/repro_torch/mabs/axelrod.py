@@ -1,0 +1,140 @@
+"""Axelrod-type cultural dynamics (paper §4.1, spec of Băbeanu et al. 2018).
+
+Port of ``repro/mabs/axelrod.py``. N agents, each holding F traits with
+values in {0..q-1}, on a contact network: complete-graph mixing by
+default, or any ``Topology`` (the target is then a uniform neighbor of
+the source). One *task* = one pairwise interaction:
+
+  creation  — draw source uniformly, target uniformly among the source's
+              partners; bind the task's execution key.
+  execution — overlap o = (1/F) Σ_f [s_f == t_f]; with probability o,
+              if 0 < o < 1 and o >= 1 - ω (bounded confidence), the target
+              copies one uniformly-chosen differing feature from the source.
+
+Footprint R = {src, tgt}, W = {tgt}: the derived rule equals the
+hand-written ``conflicts`` (paper rule src_i == tgt_j or tgt_i == tgt_j,
+plus the anti-dependence tgt_i == src_j under the strict closure). Only
+the strict rule is bit-exact against sequential execution.
+
+Float arithmetic follows the reference's float32 exactly: the overlap is
+a float32 sum over F divided by F (``jnp.mean``), ``1 - ω`` is formed in
+Python doubles and rounded to float32 (jnp's weak-typed scalar), and the
+feature pick is the first maximum of the differing features' uniforms.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.model import MABSModel
+from repro_torch.utils import prng
+from repro_torch.utils.device import resolve_device
+
+
+@dataclass
+class AxelrodConfig:
+    n_agents: int = 10_000
+    n_features: int = 3     # F — the paper's task-size proxy s
+    q: int = 3              # traits per feature
+    omega: float = 0.95     # bounded-confidence threshold
+
+
+class AxelrodModel(MABSModel):
+    name = "axelrod"
+
+    def __init__(self, config: AxelrodConfig | None = None, *,
+                 topology=None, device=None):
+        """topology: optional ``Topology`` restricting partner sampling to
+        network neighbors (None = complete-graph mixing). Every node needs
+        degree >= 1. The model lives on the topology's device, or on
+        ``device`` (default: the card) under complete mixing."""
+        self.cfg = config or AxelrodConfig()
+        self.topology = topology
+        if topology is not None:
+            if topology.n_nodes != self.cfg.n_agents:
+                raise ValueError("topology size must match n_agents")
+            if int(topology.degrees.min()) < 1:
+                raise ValueError(
+                    "partner sampling needs every node to have a neighbor "
+                    "(isolated nodes would sample the -1 padding slot)")
+            dev = topology.device
+            if device is not None and resolve_device(device) != dev:
+                raise ValueError(f"the topology is on {dev}, not {device}")
+        else:
+            dev = resolve_device(device)
+        self.device = dev
+        # the Python-double constants as jnp's weak-typed float32 scalars;
+        # F too, so the overlap is a true division on the card (a host
+        # scalar divisor becomes a multiply by its reciprocal there)
+        self._one, self._lo, self._nf = (
+            torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (1.0, 1.0 - self.cfg.omega,
+                      float(self.cfg.n_features)))
+
+    # ------------------------------------------------------------- state
+    def init_state(self, rng: torch.Tensor, *, device=None):
+        cfg = self.cfg
+        rng = rng.to(resolve_device(device))
+        return {"traits": prng.randint(rng, (cfg.n_agents, cfg.n_features),
+                                       0, cfg.q)}
+
+    # ---------------------------------------------------------- creation
+    def create_tasks(self, base_key: torch.Tensor, start_index, count: int):
+        n = self.cfg.n_agents
+        idx = int(start_index) + torch.arange(count, dtype=torch.int64,
+                                              device=base_key.device)
+        ks, kt, kx = prng.split(prng.fold_in(base_key, idx), 3).unbind(-2)
+        src = prng.randint(ks, (), 0, n)
+        if self.topology is None:
+            # distinct target: draw from n-1 and shift past src
+            tgt = prng.randint(kt, (), 0, n - 1)
+            tgt = torch.where(tgt >= src, tgt + 1, tgt)
+        else:
+            tgt = self.topology.sample_neighbor(kt, src).to(torch.int32)
+        # kx is the execution key: randomness is bound at creation
+        return {"src": src, "tgt": tgt, "index": idx.to(torch.int32),
+                "key": kx}
+
+    # -------------------------------------------------------- dependence
+    def task_footprint(self, recipes):
+        """R = {src, tgt} (both trait rows are read), W = {tgt}."""
+        reads = torch.stack([recipes["src"], recipes["tgt"]], dim=-1)
+        return reads, recipes["tgt"][..., None]
+
+    def conflicts(self, a, b, *, strict: bool = True):
+        """later a vs earlier b — hand-written form of the footprint rule."""
+        c = (a["src"] == b["tgt"]) | (a["tgt"] == b["tgt"])  # paper rule
+        if strict:
+            c = c | (a["tgt"] == b["src"])  # anti-dependence closure
+        return c
+
+    # --------------------------------------------------------- execution
+    def _draws(self, recipes):
+        """The execution draws bound to each task's key: u [W] and the
+        feature-pick uniforms [W, F]."""
+        ku, kf = prng.split(recipes["key"]).unbind(-2)
+        return prng.uniform(ku), prng.uniform(kf, (self.cfg.n_features,))
+
+    def _apply(self, state, recipes, draws, mask):
+        cfg = self.cfg
+        traits = state["traits"]
+        src, tgt = recipes["src"].long(), recipes["tgt"].long()
+        u, gumb = draws
+        s_tr, t_tr = traits[src], traits[tgt]                      # [W, F]
+        eq = s_tr == t_tr
+        overlap = eq.sum(dim=-1).to(torch.float32) / self._nf
+        interact = (mask & (u < overlap) & (overlap < self._one)
+                    & (overlap >= self._lo))
+        # one differing feature, uniformly: the first max of the uniforms
+        scores = torch.where(~eq, gumb, -1.0)
+        feat = scores.argmax(dim=-1)                               # [W]
+        new_val = s_tr.gather(1, feat[:, None])[:, 0]
+        # inactive tasks write a scratch row past the end (no host sync)
+        ext = torch.cat([traits, traits.new_zeros((1, cfg.n_features))])
+        ext[torch.where(interact, tgt, cfg.n_agents), feat] = torch.where(
+            interact, new_val, 0)
+        return {"traits": ext[:cfg.n_agents]}
+
+    def execute_wave(self, state, recipes, mask):
+        return self._apply(state, recipes, self._draws(recipes), mask)

@@ -1,0 +1,192 @@
+"""SIRS epidemic on a contact network (paper §4.2, generalized).
+
+Port of ``repro/mabs/sir.py``. N agents on a ``Topology`` (default: the
+paper's ring of degree k). States S=0, I=1, R=2 (int8). Per global step
+each agent may advance one state — S->I with prob p_SI · (infected
+fraction of its neighbours), I->R with prob p_IR, R->S with prob p_RS —
+from the *previous* step's states, through a new-state buffer.
+
+Protocol mapping: M = N/s contiguous subsets of size s. Each step emits
+2M tasks in chain order [A_0..A_{M-1}, B_0..B_{M-1}]:
+  type A (compute): new_states[subset] := transition(states[nbhd(subset)])
+  type B (commit):  states[subset]     := new_states[subset]
+
+Footprint — block-granular ids over two disjoint id spaces, states-block
+b -> b and new-states-block b -> M + b, with adjacency on the aggregate
+subset graph (``Topology.block_graph``, every block adjacent to itself):
+  A_i:  R = {blocks adjacent to i},  W = {M + i}
+  B_i:  R = {M + i},                 W = {i}
+whose derived rules equal the hand-written ``conflicts``.
+
+Float arithmetic follows the reference's float32 exactly: the infected
+fraction is a float32 mean over the degree, the rates are rounded to
+float32 before use (jnp's weak-typed scalars), and the uniforms come from
+the recipe keys, s per task.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.model import MABSModel, scatter_rows
+from repro_torch.topology import Topology, ring
+from repro_torch.utils import prng
+from repro_torch.utils.device import resolve_device
+
+S, I, R = 0, 1, 2
+
+
+@dataclass
+class SIRConfig:
+    n_agents: int = 4_000
+    k: int = 14                 # default ring degree (k/2 on each side)
+    subset_size: int = 50       # s — chain granularity / task-size proxy
+    p_si: float = 0.8
+    p_ir: float = 0.1
+    p_rs: float = 0.3
+    i0: float = 0.05            # initial infected fraction
+
+    @property
+    def n_subsets(self) -> int:
+        if self.n_agents % self.subset_size:
+            raise ValueError("subset_size must divide n_agents")
+        return self.n_agents // self.subset_size
+
+    @property
+    def block_reach(self) -> int:
+        """Ring aggregate-graph adjacency radius in blocks (incl. self=0);
+        only meaningful for the default ring topology."""
+        return -(-(self.k // 2) // self.subset_size)  # ceil division
+
+    def tasks_per_step(self) -> int:
+        return 2 * self.n_subsets
+
+
+class SIRModel(MABSModel):
+    name = "sir"
+
+    def __init__(self, config: SIRConfig | None = None, *,
+                 topology: Topology | None = None, device=None):
+        """topology: contact network (None = ring of degree cfg.k on
+        ``device``, default the card). Block adjacency is derived from
+        it."""
+        self.cfg = cfg = config or SIRConfig()
+        self.topology = topology if topology is not None else ring(
+            cfg.n_agents, cfg.k, device=resolve_device(device))
+        if self.topology.n_nodes != cfg.n_agents:
+            raise ValueError("topology size must match n_agents")
+        # the aggregate subset graph, self loops included: its padded
+        # rows are the A tasks' read-id footprints
+        self.block_topo = self.topology.block_graph(cfg.subset_size)
+        self._p_si, self._p_ir, self._p_rs = (
+            torch.tensor(x, dtype=torch.float32, device=self.topology.device)
+            for x in (cfg.p_si, cfg.p_ir, cfg.p_rs))
+
+    # ------------------------------------------------------------- state
+    def init_state(self, rng: torch.Tensor, *, device=None):
+        rng = rng.to(resolve_device(device))
+        u = prng.uniform(rng, (self.cfg.n_agents,))
+        i0 = torch.tensor(self.cfg.i0, dtype=torch.float32, device=u.device)
+        states = torch.where(u < i0, I, S).to(torch.int8)
+        return {"states": states, "new_states": states.clone()}
+
+    # ---------------------------------------------------------- creation
+    def create_tasks(self, base_key: torch.Tensor, start_index, count: int):
+        m = self.cfg.n_subsets
+        idx = int(start_index) + torch.arange(count, dtype=torch.int64,
+                                              device=base_key.device)
+        within = idx % (2 * m)
+        return {
+            "subset": (within % m).to(torch.int32),
+            "type": (within >= m).to(torch.int32),   # 0 = A, 1 = B
+            "step": (idx // (2 * m)).to(torch.int32),
+            "index": idx.to(torch.int32),
+            "key": prng.fold_in(base_key, idx),
+        }
+
+    # -------------------------------------------------------- dependence
+    def _adjacent(self, b1, b2):
+        """b2 ∈ neighbors(b1) on the aggregate graph (broadcasts)."""
+        nbrs = self.block_topo.neighbors[b1.long()]          # [..., Db]
+        return ((nbrs == b2[..., None]) & (nbrs >= 0)).any(dim=-1)
+
+    def task_footprint(self, recipes):
+        """States-block b -> id b, new-states-block b -> id M + b."""
+        m = self.cfg.n_subsets
+        subset, ttype = recipes["subset"], recipes["type"]
+        nbr_blocks = self.block_topo.neighbors[subset.long()]  # [..., Db]
+        buf_row = torch.full_like(nbr_blocks, -1)
+        buf_row[..., 0] = m + subset
+        reads = torch.where((ttype == 1)[..., None], buf_row, nbr_blocks)
+        writes = torch.where(ttype == 1, subset, m + subset)[..., None]
+        return reads.to(torch.int32), writes.to(torch.int32)
+
+    def conflicts(self, a, b, *, strict: bool = True):
+        """later a vs earlier b — hand-written form of the footprint rule."""
+        same = a["subset"] == b["subset"]
+        adj = self._adjacent(a["subset"], b["subset"])
+        a_is_b = a["type"] == 1
+        b_is_a = b["type"] == 0
+        # paper rules
+        c = (a_is_b & b_is_a & same) | (~a_is_b & ~b_is_a & adj)
+        if strict:
+            # anti: a commit may not overtake a pending compute of an
+            # adjacent subset; output: two computes (new_states) or two
+            # commits (states) on the same subset
+            c = c | (a_is_b & b_is_a & adj)
+            c = c | (~a_is_b & b_is_a & same)
+            c = c | (a_is_b & ~b_is_a & same)
+        return c
+
+    # --------------------------------------------------------- execution
+    def _transition(self, states, agents, u):
+        """Synchronous SIRS transition for agent rows [..., s] given their
+        uniforms [..., s]; reads only ``states``."""
+        inf_frac = self.topology.neighbor_fraction(states == I, agents)
+        cur = states[agents.long()]
+        return torch.where(
+            (cur == S) & (u < self._p_si * inf_frac), I,
+            torch.where(
+                (cur == I) & (u < self._p_ir), R,
+                torch.where((cur == R) & (u < self._p_rs), S, cur),
+            ),
+        ).to(torch.int8)
+
+    def _draws(self, recipes):
+        return prng.uniform(recipes["key"], (self.cfg.subset_size,))
+
+    def _apply(self, state, recipes, u, mask):
+        s_sz = self.cfg.subset_size
+        states, new_states = state["states"], state["new_states"]
+        subset, ttype = recipes["subset"], recipes["type"]
+        agents = (subset[:, None] * s_sz
+                  + torch.arange(s_sz, dtype=torch.int32,
+                                 device=subset.device)[None, :])  # [W, s]
+        # type A: compute new states from current states
+        nxt = self._transition(states, agents, u)
+        new_states = scatter_rows(new_states, agents, nxt,
+                                  (mask & (ttype == 0))[:, None])
+        # type B: commit new states
+        states = scatter_rows(states, agents, new_states[agents.long()],
+                              (mask & (ttype == 1))[:, None])
+        return {"states": states, "new_states": new_states}
+
+    def execute_wave(self, state, recipes, mask):
+        return self._apply(state, recipes, self._draws(recipes), mask)
+
+    # -------------------------------------------------- reference stepper
+    def reference_step(self, state, base_key: torch.Tensor, step: int):
+        """Whole-system synchronous step (no protocol), with the keys the
+        protocol's A tasks of global step ``step`` draw — bit-exact
+        against running that step's 2M tasks through any engine."""
+        cfg = self.cfg
+        m = cfg.n_subsets
+        idx = step * 2 * m + torch.arange(m, dtype=torch.int64,
+                                          device=base_key.device)
+        u = prng.uniform(prng.fold_in(base_key, idx), (cfg.subset_size,))
+        agents = torch.arange(cfg.n_agents, dtype=torch.int32,
+                              device=base_key.device).reshape(
+                                  m, cfg.subset_size)
+        nxt = self._transition(state["states"], agents, u).reshape(-1)
+        return {"states": nxt, "new_states": nxt.clone()}

@@ -71,14 +71,19 @@ class SISModel(MABSModel):
         return reads.to(torch.int32), v[..., None]
 
     # --------------------------------------------------------- execution
-    def execute_wave(self, state, recipes, mask):
+    def _draws(self, recipes):
+        return prng.uniform(recipes["key"])                           # [W]
+
+    def _apply(self, state, recipes, u, mask):
         states = state["states"]
         v = recipes["v"]
         inf_frac = self.topology.neighbor_fraction(states == I, v)  # [W]
         cur = states[v.long()]
-        u = prng.uniform(recipes["key"])                              # [W]
         nxt = torch.where(
             (cur == S) & (u < self._beta * inf_frac), I,
             torch.where((cur == I) & (u < self._gamma), S, cur),
         ).to(torch.int8)
         return {"states": scatter_rows(states, v, nxt, mask)}
+
+    def execute_wave(self, state, recipes, mask):
+        return self._apply(state, recipes, self._draws(recipes), mask)

@@ -94,7 +94,22 @@ declare("total_waves", "int", "core",
 declare("mean_parallelism", "float", "core",
         "total_tasks / total_waves — mean tasks per wave")
 
-# overlap — windowed engines (only the barrier loop is ported so far)
+# overlap — windowed engines (the cross-window carry-over accounting)
 declare("overlap", "bool", "overlap",
         "the overlapped (fused-boundary) loop actually ran",
         nullable=True)
+declare("n_boundaries", "int", "overlap",
+        "window transitions checked (n_windows - 1)", nullable=True)
+declare("mean_overlap_depth", "float", "overlap",
+        "mean tail waves of window k that also ran window k+1 tasks",
+        nullable=True)
+declare("max_overlap_depth", "int", "overlap",
+        "max of the same over boundaries", nullable=True)
+declare("overlap_tasks_early", "int", "overlap",
+        "tasks executed before their window's barrier would have opened",
+        nullable=True)
+declare("carry_frontier_mean", "float", "overlap",
+        "mean carry floor over next-window tasks (0 = independent head)",
+        nullable=True)
+declare("carry_frontier_max", "int", "overlap",
+        "largest carry floor seen", nullable=True)

@@ -9,17 +9,24 @@ same key yields the reference's neighbor table exactly. Nothing allocates
 Conventions: undirected simple graphs (no self loops, no multi-edges);
 neighbor rows ascend by node id; padding id is -1 (graph.PAD).
 
-``erdos_renyi``, ``barabasi_albert`` and ``complete`` are not ported yet.
+``erdos_renyi`` and ``barabasi_albert`` are not ported yet (tests carry
+the reference's graphs across through ``bridge.topology_from_numpy``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.topology.graph import Topology, from_edges
+from repro_torch.topology.graph import (
+    Topology,
+    _check_dense,
+    from_adjacency,
+    from_edges,
+)
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
-__all__ = ["ring", "lattice2d", "watts_strogatz", "connect_isolated"]
+__all__ = ["ring", "lattice2d", "watts_strogatz", "connect_isolated",
+           "complete"]
 
 
 def connect_isolated(topo: Topology, key: torch.Tensor) -> Topology:
@@ -108,3 +115,14 @@ def watts_strogatz(n: int, k: int, beta: float, key: torch.Tensor, *,
     edges = torch.stack([v.expand(n, half).reshape(-1), tgt.reshape(-1)],
                         dim=1)
     return from_edges(n, edges, max_degree=max_degree, device=dev)
+
+
+def complete(n: int, *, device=None) -> Topology:
+    """Complete graph K_n (the seed Axelrod mixing assumption). Inherently
+    dense — the table alone is [n, n-1] — so it stays on the
+    ``from_adjacency`` diagnostics path and its size guard (checked before
+    the [n, n] argument is allocated)."""
+    _check_dense(n, "complete()")
+    dev = resolve_device(device)
+    return from_adjacency(torch.ones((n, n), dtype=torch.bool, device=dev),
+                          max_degree=n - 1, device=dev)

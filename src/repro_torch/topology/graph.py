@@ -11,8 +11,10 @@ so every gather is a rectangular ``neighbors[v]``, and the -1 padding is
 the conflict kernel's "unused id slot": a neighbor row drops straight into
 a task's read-id footprint.
 
-``block_graph`` and the dense helpers (``adjacency``/``from_adjacency``)
-are not ported yet.
+``block_graph`` aggregates contiguous node blocks into a smaller graph
+(SIRS's subset graph) through the sparse ``from_edges``. The dense helpers
+(``adjacency``/``from_adjacency``) are for small-n diagnostics and refuse
+above ``DENSE_LIMIT`` nodes.
 """
 from __future__ import annotations
 
@@ -24,6 +26,21 @@ from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
 PAD = -1  # unused neighbor slot; also "unused id" in the conflict kernel
+
+#: Largest node count for which dense [n, n] helpers are allowed. Above
+#: this, adjacency()/from_adjacency() would allocate multi-GiB boolean
+#: matrices; the sparse edge-list path (from_edges) has no limit.
+DENSE_LIMIT = 1 << 14
+
+
+def _check_dense(n: int, what: str) -> None:
+    if n > DENSE_LIMIT:
+        raise ValueError(
+            f"{what} would materialize a dense [{n}, {n}] array "
+            f"(~{n * n / 2**30:.1f} GiB as bool); refusing above "
+            f"n = {DENSE_LIMIT}. Use the padded-CSR form directly "
+            "(Topology.neighbors / from_edges) — the dense helpers exist "
+            "for small-n diagnostics only.")
 
 
 @dataclass(frozen=True)
@@ -46,7 +63,21 @@ class Topology:
     def device(self) -> torch.device:
         return self.neighbors.device
 
+    @property
+    def n_edges(self) -> torch.Tensor:
+        """Undirected edge count (0-d int64). A proper edge appears in two
+        rows, a self-loop (block graphs have them) in one."""
+        own = torch.arange(self.n_nodes, dtype=torch.int32,
+                           device=self.device)[:, None]
+        loops = (self.neighbors == own).any(dim=1).sum()
+        return (self.degrees.sum() + loops) // 2
+
     # ------------------------------------------------------------- queries
+    def neighbor_mask(self) -> torch.Tensor:
+        """[n_nodes, max_degree] bool — True where a slot holds a
+        neighbor. Table-shaped, so safe at any n (unlike ``adjacency``)."""
+        return self.neighbors >= 0
+
     def edge_list(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(edges [n·max_degree, 2] int32, valid [n·max_degree] bool):
         every (v, neighbor) slot of the table, one direction per slot.
@@ -68,9 +99,10 @@ class Topology:
         mask = nbrs >= 0
         out = values[torch.where(mask, nbrs, 0).long()]
         bshape = mask.shape + (1,) * (out.dim() - mask.dim())
-        return torch.where(mask.reshape(bshape), out,
-                           torch.as_tensor(fill, dtype=out.dtype,
-                                           device=out.device)), mask
+        # the fill is made on the device (a fill kernel): a host-built
+        # scalar would be a blocking copy, a host sync per call
+        fill = torch.full((), fill, dtype=out.dtype, device=out.device)
+        return torch.where(mask.reshape(bshape), out, fill), mask
 
     def neighbor_fraction(self, indicator: torch.Tensor,
                           rows: torch.Tensor) -> torch.Tensor:
@@ -90,6 +122,69 @@ class Topology:
 
     def to(self, device) -> "Topology":
         return Topology(self.neighbors.to(device), self.degrees.to(device))
+
+    # -------------------------------------------------------- derived graphs
+    def block_graph(self, block_size: int) -> "Topology":
+        """Aggregate topology over contiguous node blocks of ``block_size``.
+
+        Block b = nodes [b*s, (b+1)*s). Blocks b1, b2 are adjacent iff some
+        edge connects them; every block is adjacent to itself (the paper's
+        §4.2 aggregate subset graph, generalized from the ring). Built on
+        the topology's device through the sparse ``from_edges``.
+        """
+        n, s = self.n_nodes, int(block_size)
+        if n % s:
+            raise ValueError("block_size must divide n_nodes")
+        m, dev = n // s, self.device
+        blk_src = (torch.arange(n, dtype=torch.int32, device=dev) // s
+                   ).repeat_interleave(self.max_degree)            # [N*D]
+        blk_dst = torch.where(self.neighbors >= 0,
+                              self.neighbors // s, PAD).reshape(-1)  # [N*D]
+        loops = torch.arange(m, dtype=torch.int32, device=dev)
+        edges = torch.cat([torch.stack([blk_src, blk_dst], dim=1),
+                           torch.stack([loops, loops], dim=1)])
+        return from_edges(m, edges, allow_self_loops=True, device=dev)
+
+    def adjacency(self) -> torch.Tensor:
+        """Dense [n, n] bool adjacency — small-n diagnostics only; raises
+        above DENSE_LIMIT nodes instead of allocating O(n²)."""
+        n = self.n_nodes
+        _check_dense(n, "Topology.adjacency()")
+        adj = torch.zeros((n, n + 1), dtype=torch.bool, device=self.device)
+        rows = torch.arange(n, device=self.device)[:, None].expand(
+            n, self.max_degree)
+        cols = torch.where(self.neighbors < 0, n, self.neighbors).long()
+        adj[rows, cols] = True  # padded slots land in the scratch column
+        return adj[:, :n]
+
+
+def from_adjacency(adj, *, max_degree: int | None = None,
+                   allow_self_loops: bool = False, device=None) -> Topology:
+    """Build a Topology from a dense boolean adjacency matrix.
+
+    Small-n diagnostics path (raises above DENSE_LIMIT — use
+    ``from_edges`` for anything larger). ``max_degree=None`` computes the
+    tight bound (one host sync). A row with more than ``max_degree``
+    neighbors keeps its ``max_degree`` lowest-id ones, degrees clamped to
+    match. Rows pack neighbor-first through a stable argsort, keeping
+    ascending neighbor ids.
+    """
+    dev = resolve_device(device)
+    adj = torch.as_tensor(adj, device=dev).to(torch.bool)
+    n = adj.shape[0]
+    _check_dense(n, "from_adjacency()")
+    if not allow_self_loops:
+        adj = adj & ~torch.eye(n, dtype=torch.bool, device=dev)
+    degrees = adj.sum(dim=1).to(torch.int32)
+    if max_degree is None:
+        max_degree = max(int(degrees.max()), 1) if n else 1  # host sync
+    degrees = degrees.clamp(max=max_degree)
+    # stable sort puts True entries first while keeping column order
+    order = torch.argsort((~adj).to(torch.uint8), dim=1,
+                          stable=True)[:, :max_degree]
+    slot = torch.arange(max_degree, dtype=torch.int32, device=dev)[None, :]
+    nbrs = torch.where(slot < degrees[:, None], order, PAD).to(torch.int32)
+    return Topology(neighbors=nbrs, degrees=degrees)
 
 
 def from_edges(n: int, edges, *, max_degree: int | None = None,

@@ -98,6 +98,15 @@ def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (((((a >> 16) * b) & 0xFFFF) << 16) + (a & 0xFFFF) * b) & MASK
 
 
+def _on_device(bound, key: torch.Tensor) -> torch.Tensor:
+    """An int64 bound on the key's device. A Python number is filled in on
+    the device: a host-built scalar would be a blocking copy, a host sync
+    per call."""
+    if isinstance(bound, torch.Tensor):
+        return bound.to(device=key.device, dtype=torch.int64)
+    return torch.full((), int(bound), dtype=torch.int64, device=key.device)
+
+
 def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     """int32 integers in [minval, maxval): ``[B..., *shape]`` for keys
     ``[B..., 2]``; the bounds are ints or tensors that broadcast to that
@@ -106,8 +115,7 @@ def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     ks = split(key)
     higher = random_bits(ks[..., 0, :], shape)
     lower = random_bits(ks[..., 1, :], shape)
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    lo, hi = _on_device(minval, key), _on_device(maxval, key)
     out_of_range = hi > _INT32_MAX
     lo = lo.clamp(_INT32_MIN, _INT32_MAX)
     hi = hi.clamp(_INT32_MIN, _INT32_MAX)
@@ -137,7 +145,7 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     bits = random_bits(key, shape)
     floats = (((bits >> 9) | 0x3F800000).to(torch.int32)
               .view(torch.float32) - 1.0)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 

@@ -1,6 +1,6 @@
 """The port on the card: the hand-written kernels against their plain
-PyTorch versions, bit for bit, and a small wavefront run through them
-against the port's oracle and its CPU run. Every test is marked ``cuda``
+PyTorch versions, bit for bit, and small wavefront and wavefront_overlap
+runs through them against the port's oracle and its CPU run. Every test is marked ``cuda``
 and skips without a card. The file imports no JAX, so it runs on a GPU
 machine that has only PyTorch:
 
@@ -13,10 +13,20 @@ torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
 from repro_torch.core import ProtocolConfig, run_engine, run_oracle  # noqa: E402
 from repro_torch.kernels.conflict import conflict as conflict_kernel  # noqa: E402
-from repro_torch.kernels.conflict.ops import conflict_matrix  # noqa: E402
+from repro_torch.kernels.conflict.ops import (  # noqa: E402
+    conflict_block,
+    conflict_matrix,
+)
 from repro_torch.kernels.levels import levels as levels_kernel  # noqa: E402
 from repro_torch.kernels.levels.ops import wave_levels  # noqa: E402
-from repro_torch.mabs import SISModel, VoterModel  # noqa: E402
+from repro_torch.mabs import (  # noqa: E402
+    AxelrodConfig,
+    AxelrodModel,
+    SIRConfig,
+    SIRModel,
+    SISModel,
+    VoterModel,
+)
 from repro_torch.topology import watts_strogatz  # noqa: E402
 from repro_torch.utils import prng  # noqa: E402
 
@@ -115,6 +125,84 @@ def test_wavefront_on_card_matches_oracle_and_cpu(cuda_device, cls):
     cpu_out, cpu_stats = run_engine(
         cpu_model, {k: v.cpu() for k, v in state0.items()}, total, seed=6,
         config=cfg, device="cpu")
+    assert cpu_stats == stats
+    for k in out:
+        assert torch.equal(out[k], oracle[k])
+        assert torch.equal(out[k].cpu(), cpu_out[k])
+
+
+@pytest.mark.parametrize("wi,wj", [(1, 1), (37, 129), (1000, 37)])
+@pytest.mark.parametrize("slots_i,slots_j", [((1, 1), (1, 1)),
+                                             ((21, 2), (1, 1)),
+                                             ((1, 1), (21, 2))])
+@pytest.mark.parametrize("strict", [True, False])
+def test_block_kernel_matches_plain(cuda_device, wi, wj, slots_i, slots_j,
+                                    strict):
+    ri, wri, vi = _footprint(wi + slots_i[0], wi, *slots_i, cuda_device)
+    rj, wrj, vj = _footprint(wj + slots_j[1], wj, *slots_j, cuda_device)
+    args = (ri, wri, rj, wrj, vi, vj)
+    before = conflict_kernel.block_launches
+    got = conflict_block(*args, strict=strict)
+    assert conflict_kernel.block_launches == before + 1
+    assert got.shape == (wi, wj)
+    assert torch.equal(got, conflict_block(*args, strict=strict,
+                                           backend="torch"))
+
+
+def test_block_kernel_refuses_what_it_does_not_take(cuda_device):
+    ri, wri, vi = _footprint(0, 64, 3, 1, cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        conflict_kernel.conflict_block_cuda(ri.long(), wri, ri, wri, vi, vi)
+    with pytest.raises(ValueError, match="shape"):
+        conflict_kernel.conflict_block_cuda(ri, wri, ri, wri, vi, vi[:10])
+    wide = torch.zeros((64, 200), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared"):
+        conflict_kernel.conflict_block_cuda(wide, wri, wide, wri, vi, vi)
+
+
+def _small_models(device):
+    topo = watts_strogatz(3000, 6, 0.1, prng.key(4, device=device),
+                          device=device)
+    return {"voter": VoterModel(topo), "sis": SISModel(topo),
+            "axelrod": AxelrodModel(AxelrodConfig(n_agents=3000),
+                                    device=device),
+            "sirs": SIRModel(SIRConfig(n_agents=3000, k=14,
+                                       subset_size=50), device=device)}
+
+
+def _on_cpu(name, model):
+    if name == "voter":
+        return VoterModel(model.topology.to("cpu"))
+    if name == "sis":
+        return SISModel(model.topology.to("cpu"))
+    if name == "axelrod":
+        return AxelrodModel(model.cfg, device="cpu")
+    return SIRModel(model.cfg, topology=model.topology.to("cpu"))
+
+
+@pytest.mark.parametrize("name", ["voter", "sis", "axelrod", "sirs"])
+def test_overlap_on_card_matches_oracle_and_cpu(cuda_device, name):
+    """A partial-tail overlapped run: the final state equals the port's
+    oracle on the card and a CPU run; the stats equal the CPU run's;
+    conflict and levels launched once per window, the block kernel once
+    per boundary."""
+    model = _small_models(cuda_device)[name]
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    cfg = ProtocolConfig(window=256)
+    total = 256 * 6 + 100
+    conflict_kernel.launches = conflict_kernel.block_launches = 0
+    levels_kernel.launches = 0
+    out, stats = run_engine(model, state0, total, seed=6, config=cfg,
+                            engine="wavefront_overlap", device=cuda_device)
+    assert conflict_kernel.launches == levels_kernel.launches \
+        == stats["n_windows"] == 7
+    assert conflict_kernel.block_launches == 6
+    oracle = run_oracle(model, state0, total, seed=6, config=cfg,
+                        device=cuda_device)
+    cpu_out, cpu_stats = run_engine(
+        _on_cpu(name, model), {k: v.cpu() for k, v in state0.items()},
+        total, seed=6, config=cfg, engine="wavefront_overlap", device="cpu")
     assert cpu_stats == stats
     for k in out:
         assert torch.equal(out[k], oracle[k])

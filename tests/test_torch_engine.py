@@ -5,9 +5,10 @@ totals that are not a multiple of the window: the port's wavefront final
 state equals the reference's wavefront and oracle, the port's oracle
 equals the reference's, init_state, per-window recipes and wave levels
 and the stats dicts are identical; under the paper's rule (strict=False)
-the port equals the reference's wavefront; and with recipes injected
-from the reference, execute_window agrees (so a PRNG fault and a
-schedule fault show apart)."""
+the port equals the reference's wavefront; with recipes injected from
+the reference, execute_window agrees (so a PRNG fault and a schedule
+fault show apart); and ProtocolConfig.overlap routes as in the
+reference."""
 import numpy as np
 import pytest
 
@@ -176,12 +177,35 @@ def test_execute_window_with_injected_recipes(model):
 
 
 def test_overlap_and_unknown_engine_raise():
+    """An engine without the overlap hooks refuses overlap=True; an
+    unregistered name raises."""
+    from repro_torch.engine import WindowedEngine
+
+    class BarrierOnly(WindowedEngine):
+        name = "barrier_only"
+
     _, pm, _, ps0 = _build("voter", "ring")
     with pytest.raises(ValueError, match="overlap"):
-        P.run_engine(pm, ps0, 100, device=CPU,
-                     config=P.ProtocolConfig(overlap=True))
+        BarrierOnly(pm, window=64, overlap=True, device=CPU).run(ps0, 100)
     with pytest.raises(ValueError, match="unknown engine"):
         P.run_engine(pm, ps0, 100, device=CPU, engine="sharded")
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_overlap_routes_through_config(model):
+    """ProtocolConfig(overlap=True) turns the wavefront engine into the
+    reference's overlapped loop: the same state and stats as the
+    reference's run under the same config."""
+    jm, pm, js0, ps0 = _build(model, "ws")
+    j_out, j_stats = J.run_engine(jm, js0, 300, seed=3,
+                                  config=J.ProtocolConfig(window=64,
+                                                          overlap=True))
+    p_out, p_stats = P.run_engine(pm, ps0, 300, seed=3, device=CPU,
+                                  config=P.ProtocolConfig(window=64,
+                                                          overlap=True))
+    assert p_stats["overlap"] is True and p_stats["n_boundaries"] == 4
+    assert_states_equal(p_out, j_out)
+    assert p_stats == j_stats
 
 
 def test_stats_registry_rejects_undeclared_and_non_finite():

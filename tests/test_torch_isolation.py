@@ -16,7 +16,14 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch import topology as PT  # noqa: E402
 from repro_torch.core import ProtocolConfig, run_engine, run_oracle  # noqa: E402
 from repro_torch.engine import make_engine  # noqa: E402
-from repro_torch.mabs import SISModel, VoterModel  # noqa: E402
+from repro_torch.mabs import (  # noqa: E402
+    AxelrodConfig,
+    AxelrodModel,
+    SIRConfig,
+    SIRModel,
+    SISModel,
+    VoterModel,
+)
 from repro_torch.utils import prng  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -36,8 +43,8 @@ def _imported_roots(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"prng.py", "graph.py", "voter.py", "sis.py", "base.py",
-            "chip_smoke.py", "bridge.py"} <= names
+    assert {"prng.py", "graph.py", "voter.py", "sis.py", "axelrod.py",
+            "sir.py", "base.py", "chip_smoke.py", "bridge.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -77,8 +84,13 @@ def cpu_model():
     lambda: bridge.key_from_data(__import__("numpy").zeros(2, "uint32")),
     lambda: bridge.state_from_numpy({"x": __import__("numpy").zeros(3)}),
     lambda: bridge.topology_from_numpy([[1], [0]], [1, 1]),
+    lambda: PT.complete(4),
+    lambda: PT.from_adjacency(torch.ones((3, 3), dtype=torch.bool)),
+    lambda: AxelrodModel(AxelrodConfig(n_agents=8)),
+    lambda: SIRModel(SIRConfig(n_agents=20, k=4, subset_size=5)),
 ], ids=["key", "ring", "lattice2d", "watts_strogatz", "from_edges",
-        "key_from_data", "state_from_numpy", "topology_from_numpy"])
+        "key_from_data", "state_from_numpy", "topology_from_numpy",
+        "complete", "from_adjacency", "axelrod", "sirs"])
 def test_constructors_without_device_raise(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -96,6 +108,19 @@ def test_models_and_engines_without_device_raise(no_cuda, cpu_model):
         run_oracle(model, state, 64, config=ProtocolConfig(window=16))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_engine("sequential", model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_engine(model, state, 64, config=ProtocolConfig(window=16),
+                   engine="wavefront_overlap")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_engine(model, state, 64,
+                   config=ProtocolConfig(window=16, overlap=True))
+    axelrod = AxelrodModel(AxelrodConfig(n_agents=8), device="cpu")
+    sirs = SIRModel(SIRConfig(n_agents=20, k=4, subset_size=5), device="cpu")
+    for m in (axelrod, sirs):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            m.init_state(prng.key(0, device="cpu"))
+    # a topology on the CPU carries its own device: no card needed
+    assert model.topology.block_graph(4).device.type == "cpu"
     assert _Spy.created == 0
 
 

@@ -138,3 +138,59 @@ def test_sample_neighbor(graphs):
     got = port.sample_neighbor(tkeys, torch.as_tensor(v))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got >= 0).all()
+
+
+# ------------------------------------------------ block graph, dense helpers
+@pytest.mark.parametrize("block", [1, 4, 8, 32])
+def test_block_graph(graphs, block):
+    """Block adjacency with self loops, through the sparse from_edges."""
+    ref, port = graphs
+    assert_same_topology(ref.block_graph(block), port.block_graph(block))
+    with pytest.raises(ValueError, match="divide"):
+        port.block_graph(7)
+
+
+def test_block_graph_of_ring():
+    """The SIRS ring: blocks of 50 on a degree-14 ring see one block on
+    each side."""
+    ref, port = R.ring(1000, 14), T.ring(1000, 14, device="cpu")
+    got = port.block_graph(50)
+    assert_same_topology(ref.block_graph(50), got)
+    assert got.max_degree == 3
+
+
+def test_n_edges_and_neighbor_mask(graphs):
+    ref, port = graphs
+    for r, p in ((ref, port), (ref.block_graph(8), port.block_graph(8))):
+        assert int(p.n_edges) == int(r.n_edges)
+        np.testing.assert_array_equal(p.neighbor_mask().numpy(),
+                                      np.asarray(r.neighbor_mask()))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("max_degree,self_loops", [(None, False), (3, False),
+                                                   (None, True)])
+def test_adjacency_round_trip(seed, max_degree, self_loops):
+    rng = np.random.RandomState(seed)
+    adj = rng.rand(30, 30) < 0.15
+    ref = R.from_adjacency(jnp.asarray(adj), max_degree=max_degree,
+                           allow_self_loops=self_loops)
+    port = T.from_adjacency(torch.as_tensor(adj), max_degree=max_degree,
+                            allow_self_loops=self_loops, device="cpu")
+    assert_same_topology(ref, port)
+    np.testing.assert_array_equal(port.adjacency().numpy(),
+                                  np.asarray(ref.adjacency()))
+
+
+@pytest.mark.parametrize("n", [2, 9, 40])
+def test_complete(n):
+    assert_same_topology(R.complete(n), T.complete(n, device="cpu"))
+
+
+def test_dense_helpers_refuse_large_n():
+    n = T.DENSE_LIMIT + 1
+    with pytest.raises(ValueError, match="dense"):
+        T.complete(n, device="cpu")
+    big = T.ring(n, 2, device="cpu")
+    with pytest.raises(ValueError, match="dense"):
+        big.adjacency()
