@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--tasks N]
+    python3 chip_smoke.py --time-overlap [--src DIR] [--tasks N]
 
 Run from the root of a checkout. Phases, each of which exits non-zero on
 failure:
@@ -16,7 +17,12 @@ failure:
      without a base floor, plus one matrix with entries above the
      diagonal; the cross-window block at (Wi, Wj) in {(1, 1), (37, 129),
      (128, 128), (4096, 4096), (1000, 37)} with each side's (nr, nw) in
-     {(1, 1), (21, 2)}, both rules, invalid tails on both sides;
+     {(1, 1), (21, 2)}, both rules, invalid tails on both sides; the
+     Axelrod wave at W in {1, 37, 128, 4096} x F in {1, 3, 37, 128, 500}
+     with masks of three densities, ties forced among the uniforms and
+     rows with every feature equal; the SIRS wave at W in {1, 8, 37,
+     4096} x (s, k) in {(10, 6), (50, 14), (400, 14), (1000, 14), (25, 2)}
+     on rings of N in {4,000, 10^6}, subsets at both ends of the ring;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
      on the card, W = 4096, 2^22 tasks each (``--tasks`` cuts the task
@@ -35,32 +41,56 @@ failure:
      q = 3, omega = 0.95, complete mixing) and SIRS (n = 10^6 on the ring
      of degree 14, subsets of 50). The counters are set to 0 before each
      run and read after: conflict and levels once per window, the block
-     kernel once per boundary. On the first 8 windows the result must
-     equal the oracle, the barrier run and a CPU run of the port (state
-     and stats), and the overlap stats must keep the monotone envelope
-     (no more waves than the barrier run). Then the same split and
-     profile as phase 5 for the overlap path;
-  7. counts the host syncs per window of each path over 16 windows
-     (``torch.cuda.set_sync_debug_mode("warn")``); more than 2 per window
-     on the overlap path fails;
-  8. times each kernel at W = 4096 on real windows (CUDA events, median
+     kernel once per boundary, the Axelrod or SIRS wave kernel once per
+     ``execute_wave`` call of its model (fused waves x 2 plus the last
+     drain's waves), the other models none. On the first 8 windows the
+     result must equal the oracle, the barrier run and a CPU run of the
+     port (state and stats; the CPU run takes the plain versions), and
+     the overlap stats must keep the monotone envelope (no more waves
+     than the barrier run). Then the same split and profile as phase 5
+     for the overlap path;
+  7. the task-size phase, at the widest tasks the paper sweeps: Axelrod
+     with F = 500 (n = 10^6, complete mixing, 2 GB of traits) and SIRS
+     with s = 1000 (n = 10^6 ring, k = 14), each through
+     ``run_engine(engine="wavefront_overlap")`` at W = 4096 for 2^18
+     tasks, wave kernel launches counted as in phase 6. The first window
+     must equal a CPU run of the port, and the first 1024 tasks the
+     oracle (at W = 4096 and at W = 256, where the pairs fuse);
+  8. a traced run: 16 windows of the overlap path for Axelrod and SIRS
+     under ``repro_torch.obs.tracing()``, exported to
+     build/trace_<model>.json. ``validate_chrome_trace`` must accept it;
+     per window one ``schedule`` and one ``execute`` span, one
+     ``boundary`` per transition, ``wave`` spans whose widths sum to the
+     tasks; state and stats equal to the untraced run's. Prints the
+     traced schedule / boundary / execute split per window;
+  9. counts the host syncs per window of each path over 16 windows
+     (``torch.cuda.set_sync_debug_mode("warn")``), tracing off; more
+     than 19 per 16 windows on the overlap path fails;
+ 10. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound; the summary line
-     holds SIS's, the widest footprint of the graph models.
+     holds SIS's conflict and levels times (the widest footprint of the
+     graph models), and the wave kernels at F = 500 and s = 1000.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits non-zero and
 prints no result.
+
+``--time-overlap`` runs none of the above: it prints the overlap path's
+wall ms per window for Axelrod (F = 3) and SIRS (s = 50) at n = 10^6,
+W = 4096, over ``--tasks`` tasks (default 2^20), with the port package
+found under ``--src`` (default ./src) — so that two trees can be
+compared in one call, each in its own process.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import time
 import warnings
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -78,6 +108,25 @@ PARITY_WINDOWS = (1, 37, 128, 129, 1000, 4096)
 BLOCK_SHAPES = ((1, 1), (37, 129), (128, 128), (4096, 4096), (1000, 37))
 SLOTS = ((1, 1), (21, 2))
 LEVEL_DENSITIES = (0.001, 0.02, 0.3)
+AXELROD_WINDOWS = (1, 37, 128, 4096)
+AXELROD_FEATURES = (1, 3, 37, 128, 500)
+MASK_DENSITIES = (0.2, 0.7, 1.0)
+SIR_WINDOWS = (1, 8, 37, 4096)
+SIR_SHAPES = ((10, 6), (50, 14), (400, 14), (1000, 14), (25, 2))
+SIR_RINGS = (4_000, 1_000_000)
+SIR_RATES = {"p_si": 0.8, "p_ir": 0.1, "p_rs": 0.3}
+
+# the task-size phase: the widest tasks of the paper's sweeps
+# (benchmarks/fig2_axelrod.py: F up to 500; benchmarks/kernels_bench.py:
+# s up to 1000)
+WIDE_F = 500
+WIDE_S = 1000
+WIDE_TASKS = 1 << 18
+ORACLE_TASKS = 1024
+TRACE_WINDOWS = 16
+#: the overlap path's host syncs per window by design (16 wave counts,
+#: the key, two stats reads over 16 windows); with tracing off no more
+OVERLAP_SYNCS_MAX = 19 / 16
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the CUDA-core
 # (non-tensor) float32 rate, taken as the rate of the kernels' integer
@@ -93,26 +142,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-# ------------------------------------------------------------- timing
-def device_ms(torch, fn, reps: int = 25) -> float:
-    """Median device time of one ``fn()`` in ms (CUDA events). A sleep
-    kernel keeps the card busy while the launches are enqueued, so the
-    events measure the kernels and not the host's launch gaps (for a
-    host-bound function such as the plain levels loop, the gaps are its
-    real cost and stay in)."""
-    fn()
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(20_000_000)
-    events[0].record()
-    for i in range(reps):
-        fn()
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    return statistics.median(events[i].elapsed_time(events[i + 1])
-                             for i in range(reps))
 
 
 # ------------------------------------------------------------- parity
@@ -208,6 +237,68 @@ def check_block_parity(torch, conflict_block) -> int:
                              f"Wi={wi} Wj={wj} (nr, nw)_i=({nr_i}, {nw_i}) "
                              f"(nr, nw)_j=({nr_j}, {nw_j}) strict={strict}")
     log(f"parity conflict_block: {cases} cases bit-exact")
+    return worst
+
+
+def check_axelrod_parity(torch, axelrod_wave) -> int:
+    """Traits over 3 values, every fifth row with all features equal,
+    uniforms on a grid of quarters (ties in the gate and the pick)."""
+    gen = torch.Generator().manual_seed(4)
+    worst, cases = 0, 0
+    for w in AXELROD_WINDOWS:
+        for f in AXELROD_FEATURES:
+            for density, omega in zip(MASK_DENSITIES, (0.95, 0.5, 0.3)):
+                s = torch.randint(0, 3, (w, f), generator=gen,
+                                  dtype=torch.int32)
+                t = torch.randint(0, 3, (w, f), generator=gen,
+                                  dtype=torch.int32)
+                t[::5] = s[::5]
+                u = torch.randint(0, 4, (w,), generator=gen) / 4
+                g = torch.randint(0, 4, (w, f), generator=gen) / 4
+                m = torch.rand(w, generator=gen) < density
+                args = [x.cuda() for x in (s, t, u, g, m)]
+                got = axelrod_wave(*args, omega=omega, backend="cuda")
+                want = axelrod_wave(*args, omega=omega, backend="torch")
+                torch.cuda.synchronize()
+                err = max(int((got[0] - want[0]).abs().max()),
+                          int((got[1].int() - want[1].int()).abs().max()))
+                worst = max(worst, err)
+                cases += 1
+                if err:
+                    fail(f"axelrod_wave kernel != plain version at W={w} "
+                         f"F={f} mask density={density} omega={omega}")
+    log(f"parity axelrod_wave: {cases} cases bit-exact")
+    return worst
+
+
+def check_sir_parity(torch, sir_wave) -> int:
+    """Random states (a third infected), subsets at both ends of the
+    ring among random ones."""
+    gen = torch.Generator().manual_seed(5)
+    worst, cases = 0, 0
+    for n in SIR_RINGS:
+        states = torch.randint(0, 3, (n,), generator=gen).to(
+            torch.int8).cuda()
+        for s, k in SIR_SHAPES:
+            for w in SIR_WINDOWS:
+                m = n // s
+                subsets = torch.randint(0, m, (w,), generator=gen,
+                                        dtype=torch.int32)
+                subsets[0] = m - 1 if w == 1 else 0
+                subsets[-1] = m - 1
+                u = torch.rand((w, s), generator=gen)
+                args = (states, subsets.cuda(), u.cuda())
+                kw = dict(n_agents=n, k=k, subset_size=s, **SIR_RATES)
+                got = sir_wave(*args, backend="cuda", **kw)
+                want = sir_wave(*args, backend="torch", **kw)
+                torch.cuda.synchronize()
+                err = int((got.int() - want.int()).abs().max())
+                worst = max(worst, err)
+                cases += 1
+                if err:
+                    fail(f"sir_wave kernel != plain version at W={w} s={s} "
+                         f"k={k} N={n}")
+    log(f"parity sir_wave: {cases} cases bit-exact")
     return worst
 
 
@@ -363,10 +454,16 @@ def device_busy(torch, models, results, engine="wavefront",
             run_engine(model, state0, n_windows * WINDOW, seed=SEED,
                        config=cfg, engine=engine)
             torch.cuda.synchronize()
+        # the protocol.* ranges (obs/profiler.py) appear on the device
+        # timeline as user annotations spanning their kernels: not kernels
         kernels = [e for e in prof.events()
-                   if str(e.device_type).endswith("CUDA")]
+                   if str(e.device_type).endswith("CUDA")
+                   and not e.is_user_annotation]
         if not kernels:
             fail(f"{name}: the profiler saw no device time")
+        ranges = {e.name for e in kernels if e.name.startswith("protocol.")}
+        if ranges:
+            fail(f"{name}: profiler ranges counted as kernels: {ranges}")
         us, calls = Counter(), Counter()
         for e in kernels:
             us[e.name] += e.device_time
@@ -437,6 +534,48 @@ def check_overlap_envelope(name, stats, barrier):
              f"{stats} vs barrier {barrier}")
 
 
+@contextmanager
+def counting_waves(model):
+    """Count the ``execute_wave`` calls the engines make on ``model``
+    inside the block: yields [count]."""
+    calls = [0]
+    execute_wave = model.execute_wave
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return execute_wave(*args, **kwargs)
+
+    model.execute_wave = counted
+    try:
+        yield calls
+    finally:
+        del model.execute_wave
+
+
+def wave_kernels():
+    """The wave kernels' bindings, by the model that launches each."""
+    from repro_torch.kernels.axelrod import axelrod as axelrod_kernel
+    from repro_torch.kernels.sir import sir as sir_kernel
+
+    return {"axelrod_wave": ("axelrod", axelrod_kernel),
+            "sir_wave": ("sirs", sir_kernel)}
+
+
+def check_wave_launches(name, family, calls):
+    """Each wave kernel launched once per execute_wave call of its own
+    model's family and never for another; returns the counts."""
+    n = {}
+    for kname, (owner, kernel) in wave_kernels().items():
+        n[kname] = kernel.launches
+        want = calls if owner == family else 0
+        if kernel.launches != want:
+            fail(f"{name}: {kname} launched {kernel.launches} times for "
+                 f"{calls} execute_wave calls (expected {want})")
+    log(f"wave kernel launches {name}: execute_wave calls {calls}, "
+        + json.dumps(n))
+    return n
+
+
 def drive_overlap_path(torch, total_tasks, models, cpu_twin, barrier):
     """The four models through run_engine(engine="wavefront_overlap") at
     full size; returns (per-model results, summed launches)."""
@@ -447,29 +586,34 @@ def drive_overlap_path(torch, total_tasks, models, cpu_twin, barrier):
 
     cfg = ProtocolConfig(window=WINDOW)
     results = {}
-    launches = {"conflict": 0, "levels": 0, "conflict_block": 0}
+    launches = {"conflict": 0, "levels": 0, "conflict_block": 0,
+                "axelrod_wave": 0, "sir_wave": 0}
     for name, model in models.items():
         state0 = model.init_state(prng.key(SEED + 1))
         torch.cuda.synchronize()
 
-        conflict_kernel.launches = 0
-        conflict_kernel.block_launches = 0
-        levels_kernel.launches = 0
-        t0 = time.perf_counter()
-        out, stats = run_engine(model, state0, total_tasks, seed=SEED,
-                                config=cfg, engine="wavefront_overlap")
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with counting_waves(model) as calls:
+            conflict_kernel.launches = 0
+            conflict_kernel.block_launches = 0
+            levels_kernel.launches = 0
+            for _, kernel in wave_kernels().values():
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            out, stats = run_engine(model, state0, total_tasks, seed=SEED,
+                                    config=cfg, engine="wavefront_overlap")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         n = {"conflict": conflict_kernel.launches,
              "levels": levels_kernel.launches,
              "conflict_block": conflict_kernel.block_launches}
-        for k, v in n.items():
-            launches[k] += v
         nw = stats["n_windows"]
         if n != {"conflict": nw, "levels": nw,
                  "conflict_block": max(nw - 1, 0)}:
             fail(f"{name}: overlap launches {n}, expected conflict = levels"
                  f" = n_windows = {nw} and conflict_block = {nw - 1}")
+        n.update(check_wave_launches(name, name, calls[0]))
+        for k, v in n.items():
+            launches[k] += v
         check_state(name, out, {k: tuple(v.shape)
                                 for k, v in state0.items()})
         if name in barrier:  # the barrier path ran the same chain
@@ -507,7 +651,7 @@ def drive_overlap_path(torch, total_tasks, models, cpu_twin, barrier):
             "checked_tasks": prefix,
             "checked_barrier_waves": wf_stats["total_waves"],
             "checked_overlap_waves": ov_stats["total_waves"],
-            "check_seconds": check_s,
+            "check_seconds": check_s, "execute_wave_calls": calls[0],
             **{k: stats[k] for k in (
                 "n_boundaries", "mean_overlap_depth", "max_overlap_depth",
                 "overlap_tasks_early", "carry_frontier_mean",
@@ -556,6 +700,198 @@ def overlap_breakdown(torch, models, n_windows: int = 16):
         row["fused_waves_per_window"] = waves / n_windows
         log(f"window breakdown overlap {name} W={WINDOW}: "
             + json.dumps(row))
+
+
+def drive_task_size(torch, total_tasks):
+    """Axelrod at F = 500 and SIRS at s = 1000 (n = 10^6) through
+    run_engine(engine="wavefront_overlap") at W = 4096, wave kernel
+    launches counted; then the first window against a CPU run of the port
+    and the first ORACLE_TASKS tasks against the oracle. Returns
+    (per-model results, summed launches, {name: (model, state0)})."""
+    from repro_torch.core import ProtocolConfig, run_engine, run_oracle
+    from repro_torch.mabs import (
+        AxelrodConfig,
+        AxelrodModel,
+        SIRConfig,
+        SIRModel,
+    )
+    from repro_torch.utils import prng
+
+    cases = {
+        f"axelrod F={WIDE_F}": (
+            "axelrod",
+            lambda: AxelrodModel(AxelrodConfig(
+                n_agents=N_NODES, n_features=WIDE_F, q=3, omega=0.95)),
+            lambda m: AxelrodModel(m.cfg, device="cpu")),
+        f"sirs s={WIDE_S}": (
+            "sirs",
+            lambda: SIRModel(SIRConfig(n_agents=N_NODES, k=14,
+                                       subset_size=WIDE_S)),
+            lambda m: SIRModel(m.cfg, topology=m.topology.to("cpu"))),
+    }
+    cfg = ProtocolConfig(window=WINDOW)
+    results, kept = {}, {}
+    launches = {"axelrod_wave": 0, "sir_wave": 0}
+    for name, (family, make, on_cpu) in cases.items():
+        model = make()
+        state0 = model.init_state(prng.key(SEED + 1))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the init's temporaries
+        with counting_waves(model) as calls:
+            for _, kernel in wave_kernels().values():
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            out, stats = run_engine(model, state0, total_tasks, seed=SEED,
+                                    config=cfg, engine="wavefront_overlap")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        for k, v in check_wave_launches(name, family, calls[0]).items():
+            launches[k] += v
+        check_state(family, out, {k: tuple(v.shape)
+                                  for k, v in state0.items()})
+        del out
+
+        t1 = time.perf_counter()
+        first, first_stats = run_engine(model, state0, WINDOW, seed=SEED,
+                                        config=cfg,
+                                        engine="wavefront_overlap")
+        cpu_out, cpu_stats = run_engine(
+            on_cpu(model), {k: v.cpu() for k, v in state0.items()}, WINDOW,
+            seed=SEED, config=cfg, engine="wavefront_overlap", device="cpu")
+        if cpu_stats != first_stats or not states_equal(cpu_out, first):
+            fail(f"{name}: GPU run != CPU run of the port on the first "
+                 f"window: {first_stats} vs {cpu_stats}")
+        del first, cpu_out
+        oracle = run_oracle(model, state0, ORACLE_TASKS, seed=SEED,
+                            config=ProtocolConfig(window=256))
+        for w in (WINDOW, 256):
+            ov, _ = run_engine(model, state0, ORACLE_TASKS, seed=SEED,
+                               config=ProtocolConfig(window=w),
+                               engine="wavefront_overlap")
+            if not states_equal(ov, oracle):
+                fail(f"{name}: wavefront_overlap at W={w} != sequential "
+                     f"oracle on the first {ORACLE_TASKS} tasks")
+        del oracle, ov
+        check_s = time.perf_counter() - t1
+        results[name] = {
+            "n_agents": N_NODES, "window": WINDOW,
+            "total_tasks": total_tasks, "n_windows": stats["n_windows"],
+            "total_waves": stats["total_waves"],
+            "mean_parallelism": stats["mean_parallelism"],
+            "seconds": secs, "tasks_per_s": total_tasks / secs,
+            "ms_per_window": secs / stats["n_windows"] * 1e3,
+            "execute_wave_calls": calls[0],
+            "overlap_tasks_early": stats["overlap_tasks_early"],
+            "check_seconds": check_s,
+        }
+        log(f"task size {name}: " + json.dumps(results[name]))
+        kept[name] = (model, state0)
+    return results, launches, kept
+
+
+def span_split(events, n_windows):
+    """ms per window of each B/E span name on the windows thread."""
+    from collections import defaultdict
+
+    total, stack = defaultdict(float), []
+    for e in events:
+        if e.get("tid") != 0 or e["ph"] not in ("B", "E"):
+            continue
+        if e["ph"] == "B":
+            stack.append(e)
+        else:
+            b = stack.pop()
+            total[b["name"]] += (e["ts"] - b["ts"]) / 1e3
+    return {f"{k}_ms": v / n_windows for k, v in total.items()
+            if k != "run"}
+
+
+def traced_run(torch, models, n_windows: int = TRACE_WINDOWS):
+    """n_windows windows of the overlap path under tracing() for Axelrod
+    and SIRS: a valid Chrome trace with the reference's taxonomy, and the
+    untraced run's state and stats."""
+    from collections import Counter
+
+    from repro_torch.core import ProtocolConfig, run_engine
+    from repro_torch.obs import tracing, validate_chrome_trace
+    from repro_torch.utils import prng
+
+    cfg = ProtocolConfig(window=WINDOW)
+    total = n_windows * WINDOW
+    (ROOT / "build").mkdir(exist_ok=True)
+    for name in ("axelrod", "sirs"):
+        model = models[name]
+        state0 = model.init_state(prng.key(SEED + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, plain_stats = run_engine(model, state0, total, seed=SEED,
+                                        config=cfg,
+                                        engine="wavefront_overlap")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tracing() as tr:
+            out, stats = run_engine(model, state0, total, seed=SEED,
+                                    config=cfg, engine="wavefront_overlap")
+        traced_s = time.perf_counter() - t0
+        path = ROOT / "build" / f"trace_{name}.json"
+        payload = tr.export(str(path))
+        n_events = validate_chrome_trace(payload)
+        if stats != plain_stats or not states_equal(out, plain):
+            fail(f"{name}: the traced run != the untraced run: {stats} vs "
+                 f"{plain_stats}")
+        events = payload["traceEvents"]
+        spans = Counter(e["name"] for e in events if e["ph"] == "B")
+        want = {"run": 1, "schedule": n_windows, "execute": n_windows,
+                "boundary": n_windows - 1}
+        if dict(spans) != want:
+            fail(f"{name}: trace spans {dict(spans)}, expected {want}")
+        waves = [e for e in events if e["name"] == "wave"]
+        widths = sum(e["args"]["width"] for e in waves)
+        if len(waves) != stats["total_waves"] or widths != total:
+            fail(f"{name}: {len(waves)} wave spans of total width {widths}"
+                 f" for {stats['total_waves']} waves and {total} tasks")
+        row = {"events": n_events, "trace": str(path.relative_to(ROOT)),
+               "waves": len(waves),
+               "traced_ms_per_window": traced_s / n_windows * 1e3,
+               "untraced_ms_per_window": plain_s / n_windows * 1e3,
+               **span_split(events, n_windows)}
+        log(f"traced run overlap {name} W={WINDOW}: " + json.dumps(row))
+
+
+def time_overlap(torch, total_tasks):
+    """Wall ms per window of the overlap path for Axelrod (F = 3) and
+    SIRS (s = 50), n = 10^6, W = 4096, after a two-window warm-up, with
+    whichever port package is first on sys.path."""
+    import repro_torch
+    from repro_torch.core import ProtocolConfig, run_engine
+    from repro_torch.mabs import (
+        AxelrodConfig,
+        AxelrodModel,
+        SIRConfig,
+        SIRModel,
+    )
+    from repro_torch.utils import prng
+
+    cfg = ProtocolConfig(window=WINDOW)
+    models = {"axelrod": AxelrodModel(AxelrodConfig(
+                  n_agents=N_NODES, n_features=3, q=3, omega=0.95)),
+              "sirs": SIRModel(SIRConfig(n_agents=N_NODES, k=14,
+                                         subset_size=50))}
+    row = {"package": str(Path(repro_torch.__file__).parent.parent)}
+    for name, model in models.items():
+        state0 = model.init_state(prng.key(SEED + 1))
+        run_engine(model, state0, 2 * WINDOW, seed=SEED, config=cfg,
+                   engine="wavefront_overlap")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats = run_engine(model, state0, total_tasks, seed=SEED,
+                              config=cfg, engine="wavefront_overlap")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        row[f"{name}_ms_per_window"] = secs / stats["n_windows"] * 1e3
+        row[f"{name}_total_waves"] = stats["total_waves"]
+    log("overlap wall per window: " + json.dumps(row))
 
 
 def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
@@ -609,6 +945,7 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
     )
     from repro_torch.kernels.levels.ops import wave_levels
     from repro_torch.utils import prng
+    from repro_torch.utils.timing import cuda_event_ms
 
     rows = {}
     for name, model in models.items():
@@ -618,9 +955,9 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
         conf = conflict_matrix(reads, writes, valid)
 
-        c_ms = device_ms(torch, lambda: conflict_matrix(
+        c_ms = cuda_event_ms(lambda: conflict_matrix(
             reads, writes, valid, backend="cuda"))
-        c_plain = device_ms(torch, lambda: conflict_matrix(
+        c_plain = cuda_event_ms(lambda: conflict_matrix(
             reads, writes, valid, backend="torch"), reps=5)
         nr, nw = reads.shape[1], writes.shape[1]
         c_bytes = 4 * WINDOW * (nr + nw) + WINDOW + WINDOW * WINDOW
@@ -631,9 +968,9 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         before_r = torch.cumsum(ur, 0) - ur
         c_ops = float((ur * before_w + uw * before_w + uw * before_r).sum())
 
-        l_ms = device_ms(torch, lambda: wave_levels(conf, valid,
+        l_ms = cuda_event_ms(lambda: wave_levels(conf, valid,
                                                     backend="cuda"))
-        l_plain = device_ms(torch, lambda: wave_levels(
+        l_plain = cuda_event_ms(lambda: wave_levels(
             conf, valid, backend="torch"), reps=3)
         l_bytes = WINDOW * (WINDOW - 1) // 2 + WINDOW + 4 * WINDOW
         info = {
@@ -674,9 +1011,9 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         alive = lv_a >= 0
         args = (reads_i, writes_i, reads_j, writes_j, valid, alive)
         cross = conflict_block(*args)
-        b_ms = device_ms(torch, lambda: conflict_block(*args,
+        b_ms = cuda_event_ms(lambda: conflict_block(*args,
                                                        backend="cuda"))
-        b_plain = device_ms(torch, lambda: conflict_block(
+        b_plain = cuda_event_ms(lambda: conflict_block(
             *args, backend="torch"), reps=5)
         nr_i, nw_i = reads_i.shape[1], writes_i.shape[1]
         nr_j, nw_j = reads_j.shape[1], writes_j.shape[1]
@@ -703,11 +1040,93 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
     return [rows["conflict"], rows["levels"], rows["conflict_block"]]
 
 
+def wave_kernel_rows(torch, ov_models, wide, launches, errs):
+    """The wave kernels on real windows of their models at W = 4096 —
+    Axelrod at F = 3 and F = 500, SIRS at s = 50 and s = 1000: the
+    window's first wave as the mask, the draws its recipes bind. The
+    summary rows hold the widest tasks."""
+    from repro_torch.kernels.axelrod.ops import axelrod_wave
+    from repro_torch.kernels.sir.ops import sir_wave
+    from repro_torch.utils import prng
+    from repro_torch.utils.timing import cuda_event_ms
+
+    def first_wave(model, rec):
+        from repro_torch.core.records import wave_levels, window_conflicts
+
+        valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
+        return wave_levels(window_conflicts(model, rec, valid), valid) == 0
+
+    cases = {"axelrod F=3": (ov_models["axelrod"], None),
+             "sirs s=50": (ov_models["sirs"], None),
+             **{k: v for k, v in wide.items()}}
+    rows = {}
+    for name, (model, state) in cases.items():
+        if state is None:
+            state = model.init_state(prng.key(SEED + 1))
+        rec = model.create_tasks(prng.key(SEED), 0, WINDOW)
+        draws = model._draws(rec)
+        mask = first_wave(model, rec)
+        if name.startswith("axelrod"):
+            f = model.cfg.n_features
+            traits = state["traits"]
+            args = (traits[rec["src"].long()], traits[rec["tgt"].long()],
+                    *draws, mask)
+            kw = {"omega": model.cfg.omega}
+            fn, kname = axelrod_wave, "axelrod_wave"
+            # s, t and g read, new_t written (4 bytes each per feature);
+            # u, mask and interact (4 + 1 + 1 bytes per row)
+            nbytes = WINDOW * (16 * f + 6)
+            # a compare, a select and a compare per feature
+            ops = 3 * WINDOW * f
+            extra = {"F": f}
+        else:
+            cfg = model.cfg
+            s_sz, k = cfg.subset_size, model.topology.ring_k
+            args = (state["states"], rec["subset"], draws)
+            kw = dict(n_agents=cfg.n_agents, k=k, subset_size=s_sz,
+                      p_si=cfg.p_si, p_ir=cfg.p_ir, p_rs=cfg.p_rs)
+            fn, kname = sir_wave, "sir_wave"
+            half = k // 2
+            halo = (rec["subset"].long()[:, None] * s_sz - half
+                    + torch.arange(s_sz + 2 * half, device=DEVICE)) \
+                % cfg.n_agents
+            # the distinct halo states (1 byte), the uniforms (4 bytes per
+            # agent), the subset ids (4 per row), the next states (1)
+            halo_bytes = int(torch.unique(halo).numel())
+            nbytes = halo_bytes + WINDOW * (5 * s_sz + 4)
+            # a compare and an add per neighbour and agent
+            ops = 2 * k * WINDOW * s_sz
+            extra = {"s": s_sz, "k": k, "halo_bytes": halo_bytes}
+        ms = cuda_event_ms(lambda: fn(*args, backend="cuda", **kw))
+        plain = cuda_event_ms(lambda: fn(*args, backend="torch", **kw),
+                              reps=5)
+        row = kernel_row(kname, f"src/repro_torch/csrc/"
+                         f"{kname.split('_')[0]}.cu",
+                         {"axelrod_wave":
+                          "src/repro/kernels/axelrod/axelrod.py:70",
+                          "sir_wave": "src/repro/kernels/sir/sir.py:71"
+                          }[kname], launches[kname], errs[kname], ms, plain,
+                         nbytes, ops)
+        log(f"kernel times {name} W={WINDOW}: " + json.dumps(
+            {**extra, "ms": ms, "plain_ms": plain, "bytes": nbytes,
+             "ops": ops, "bound_ms": row["bound_ms"],
+             "first_wave_tasks": int(mask.sum())}))
+        rows[kname] = row  # the widest case comes last
+    return [rows["axelrod_wave"], rows["sir_wave"]]
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--tasks", type=int, default=TOTAL_TASKS,
+    parser.add_argument("--tasks", type=int, default=None,
                         help="tasks per model on both paths "
-                             f"(default 2^22 = {TOTAL_TASKS})")
+                             f"(default 2^22 = {TOTAL_TASKS}; with "
+                             "--time-overlap 2^20)")
+    parser.add_argument("--time-overlap", action="store_true",
+                        help="only time the overlap path of Axelrod and "
+                             "SIRS (wall ms per window)")
+    parser.add_argument("--src", type=Path, default=ROOT / "src",
+                        help="directory holding the repro_torch package "
+                             "(--time-overlap)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -715,15 +1134,21 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device is visible")
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}")
-    sys.path.insert(0, str(ROOT / "src"))
+    if not (args.src / "repro_torch").is_dir():
+        fail(f"no repro_torch under {args.src}")
+    sys.path.insert(0, str(args.src))
+    if args.time_overlap:
+        time_overlap(torch, args.tasks or 1 << 20)
+        return
+    tasks = args.tasks or TOTAL_TASKS
     from repro_torch.kernels import _build
+    from repro_torch.kernels.axelrod.ops import axelrod_wave
     from repro_torch.kernels.conflict.ops import (
         conflict_block,
         conflict_matrix,
     )
     from repro_torch.kernels.levels.ops import wave_levels
+    from repro_torch.kernels.sir.ops import sir_wave
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -734,7 +1159,7 @@ def main(argv=None) -> None:
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build_logs = _build.build(["conflict", "levels"])
+    build_logs = _build.build(["conflict", "levels", "axelrod", "sir"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(build_logs) or 'cached'})")
     for name, text in build_logs.items():
@@ -745,11 +1170,13 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     errs = {"conflict": check_conflict_parity(torch, conflict_matrix),
             "levels": check_levels_parity(torch, wave_levels),
-            "conflict_block": check_block_parity(torch, conflict_block)}
+            "conflict_block": check_block_parity(torch, conflict_block),
+            "axelrod_wave": check_axelrod_parity(torch, axelrod_wave),
+            "sir_wave": check_sir_parity(torch, sir_wave)}
     log(f"parity: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    results, launches, models, topo = drive_main_path(torch, args.tasks)
+    results, launches, models, topo = drive_main_path(torch, tasks)
     window_breakdown(torch, models)
     device_busy(torch, models, results)
     log(f"barrier path: {time.perf_counter() - t0:.1f} s")
@@ -757,23 +1184,39 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     ov_models, cpu_twin = build_overlap_models(torch, topo)
     ov_results, ov_launches = drive_overlap_path(
-        torch, args.tasks, ov_models, cpu_twin, results)
+        torch, tasks, ov_models, cpu_twin, results)
     overlap_breakdown(torch, ov_models)
     device_busy(torch, ov_models, ov_results, engine="wavefront_overlap")
     log(f"overlap path: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    _, wide_launches, wide = drive_task_size(torch, WIDE_TASKS)
+    log(f"task-size phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    traced_run(torch, ov_models)
+    log(f"traced run: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    from repro_torch.obs import current_tracer
+
+    if current_tracer() is not None:
+        fail("a tracer is still installed: the sync count needs it off")
     count_syncs(torch, models, "wavefront")
     syncs = count_syncs(torch, ov_models, "wavefront_overlap")
     worst = max(syncs.values())
-    if worst > 2:
-        fail(f"the overlap path syncs the host {worst} times per window")
+    if worst > OVERLAP_SYNCS_MAX:
+        fail(f"the overlap path syncs the host {worst} times per window, "
+             f"more than {OVERLAP_SYNCS_MAX}")
     log(f"sync count: {time.perf_counter() - t0:.1f} s")
 
     log("launches barrier path: " + json.dumps(launches)
-        + "; overlap path: " + json.dumps(ov_launches))
-    total = {k: launches.get(k, 0) + v for k, v in ov_launches.items()}
+        + "; overlap path: " + json.dumps(ov_launches)
+        + "; task-size phase: " + json.dumps(wide_launches))
+    total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
+             for k, v in ov_launches.items()}
     rows = kernel_rows(torch, models, ov_models, total, errs)
+    rows += wave_kernel_rows(torch, ov_models, wide, total, errs)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

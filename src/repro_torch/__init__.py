@@ -5,8 +5,10 @@ subpackage names: ``core`` (model interface, records, wave execution,
 protocol API), ``engine`` (sequential oracle, the wavefront engine with
 and without cross-window overlap), ``mabs`` (voter, SIS, Axelrod, SIRS),
 ``topology`` (padded-CSR graphs and generators), ``kernels``
-(hand-written Hopper kernels with their plain PyTorch versions), ``obs`` (stats registry), ``utils`` (the ``jax.random``-exact
-PRNG, device policy) and ``bridge`` (numpy hand-over from the reference).
+(hand-written Hopper kernels with their plain PyTorch versions), ``obs``
+(span tracer, stats registry, profiler ranges, provenance), ``utils``
+(the ``jax.random``-exact PRNG, device policy, timing) and ``bridge``
+(numpy hand-over from the reference).
 
 The port imports torch and numpy, never JAX and nothing of ``repro``.
 Entry points run on the card unless a caller names another device.

@@ -26,6 +26,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.obs.profiler import annotate
+
 
 def prefix_conflicts(conflict_fn: Callable, recipes, valid: torch.Tensor,
                      *, strict: bool = True) -> torch.Tensor:
@@ -36,7 +38,8 @@ def prefix_conflicts(conflict_fn: Callable, recipes, valid: torch.Tensor,
     w = valid.shape[0]
     rows = {k: x[:, None] for k, x in recipes.items()}
     cols = {k: x[None, :] for k, x in recipes.items()}
-    conf = conflict_fn(rows, cols, strict=strict)
+    with annotate("protocol.conflict_predicate", valid.device):
+        conf = conflict_fn(rows, cols, strict=strict)
     lower = torch.ones((w, w), dtype=torch.bool,
                        device=valid.device).tril(diagonal=-1)
     return conf & lower & valid[:, None] & valid[None, :]
@@ -101,11 +104,13 @@ def carry_frontier(cross: torch.Tensor,
     ``wave_levels(base=...)`` it pins every next-window task strictly
     after the tail waves it conflicts with. [W_next] int32.
     """
-    gated = torch.where(cross, levels_prev.to(torch.int32)[None, :] + 1, 0)
-    if gated.shape[1] == 0:
-        return torch.zeros(gated.shape[0], dtype=torch.int32,
-                           device=gated.device)
-    return gated.amax(dim=1).to(torch.int32)
+    with annotate("protocol.carry_frontier", cross.device):
+        gated = torch.where(cross,
+                            levels_prev.to(torch.int32)[None, :] + 1, 0)
+        if gated.shape[1] == 0:
+            return torch.zeros(gated.shape[0], dtype=torch.int32,
+                               device=gated.device)
+        return gated.amax(dim=1).to(torch.int32)
 
 
 def wave_levels(conflicts: torch.Tensor, valid: torch.Tensor, *,

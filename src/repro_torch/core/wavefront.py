@@ -9,7 +9,9 @@ a wave commute.
 The reference loops over waves on the device (a ``lax.while_loop`` on the
 dynamic ``n_waves``). PyTorch has no device-side loop, so here the loop
 runs on the host and needs the wave count first: ``int(levels.max())`` —
-**one host sync per window**, and none per wave.
+**one host sync per window**, and none per wave. The window and each wave
+open the reference's ``protocol.execute_window`` and ``protocol.wave``
+profiler ranges (``obs/profiler.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.records import wave_levels, window_conflicts
+from repro_torch.obs.profiler import annotate
 
 
 def execute_window(model, state, recipes, valid: torch.Tensor, *,
@@ -32,8 +35,11 @@ def execute_window(model, state, recipes, valid: torch.Tensor, *,
         conf = window_conflicts(model, recipes, valid, strict=strict)
         levels = wave_levels(conf, valid)
     n_waves = int(levels.max()) + 1  # the window's one host sync
-    for w in range(n_waves):
-        state = model.execute_wave(state, recipes, levels == w)
+    dev = levels.device
+    with annotate("protocol.execute_window", dev):
+        for w in range(n_waves):
+            with annotate("protocol.wave", dev):
+                state = model.execute_wave(state, recipes, levels == w)
     return state, n_waves
 
 

@@ -17,13 +17,22 @@ enqueued before window t's waves, on the one stream that keeps the order.
 With ``overlap`` on, the window boundary stops being a barrier (the
 record carry-over, ``WindowedEngine._run_overlapped``).
 
-Not ported yet: the tracing hooks and the compiled-cost hooks.
+Tracing (``repro_torch.obs.tracing``): every run loop reads
+``current_tracer()`` once and, when it is None (the default), takes the
+untraced branch of each step — no extra op and no host sync. With a
+tracer installed, the ``run``/``schedule``/``boundary``/``execute``
+spans of the reference are recorded, each fenced on its outputs, and
+each window's execute span is subdivided into width-attributed ``wave``
+spans. Not ported yet: the compiled-cost hooks (they go with the
+sharded engines).
 """
 from __future__ import annotations
 
 import abc
+from contextlib import nullcontext
 from typing import Any, Type
 
+import numpy as np
 import torch
 
 from repro_torch.core.records import (
@@ -33,8 +42,10 @@ from repro_torch.core.records import (
     window_conflicts,
 )
 from repro_torch.obs.stats import finalize_stats
+from repro_torch.obs.trace import current_tracer
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.timing import block_all
 
 ENGINES: dict[str, Type["Engine"]] = {}
 
@@ -150,6 +161,64 @@ class WindowedEngine(Engine):
     def _execute(self, state, sched):  # pragma: no cover - abstract
         raise NotImplementedError
 
+    # ------------------------------------------------------------- tracing
+    #
+    # Every hook below is reached only when a tracer is installed; the run
+    # loops check ``current_tracer() is None`` once per run. With tracing
+    # on, span boundaries fence with ``block_all`` (a synchronize on the
+    # card), which serializes the double-buffered pipeline on purpose to
+    # attribute wall time to the schedule, boundary and execute steps.
+
+    def _trace_parts(self, sched, levels=None):
+        """The level vector of one window's schedule, for the per-wave
+        trace attributes; ``levels`` overrides the schedule's own (the
+        overlapped loop re-levels and rebases). None disables per-wave
+        spans for this engine."""
+        return None
+
+    def _dispatch_schedule(self, tr, base_key, start: int, count: int, *,
+                           index: int, ov: bool = False):
+        """Enqueue one window's schedule, inside a fenced ``schedule``
+        span when tracing is on."""
+        fn = self._schedule_ov if ov else self._schedule
+        if tr is None:
+            return fn(base_key, start, count)
+        with tr.span("schedule", index=index, start=start, count=count):
+            sched = fn(base_key, start, count)
+            block_all(sched)
+        return sched
+
+    def _trace_window(self, tr, sp, parts, n_waves: int) -> None:
+        """Emit one ``wave`` span per executed wave, width-attributed
+        inside the closed execute span ``sp``. ``parts`` holds one
+        ``_trace_parts`` level vector per live window (two for a fused
+        pair drain); a wave's width counts the tasks of every part at
+        its level."""
+        parts = [p for p in parts if p is not None]
+        if n_waves <= 0 or not parts:
+            return
+        widths = np.zeros(n_waves, np.int64)
+        for lv in parts:
+            lv = lv.cpu().numpy()
+            sel = lv[(lv >= 0) & (lv < n_waves)]
+            if sel.size:
+                widths += np.bincount(sel, minlength=n_waves)[:n_waves]
+        window = sp.args.get("index")
+        args = [{"window": window, "level": w, "width": int(widths[w])}
+                for w in range(n_waves)]
+        tr.subdivide(sp, "wave", widths.tolist(), args)
+
+    def _traced_execute(self, tr, args: dict, parts, fn):
+        """``fn()`` -> (state, n_waves, ...) inside an ``execute`` span with
+        ``args``, fenced on the new state, then the window's wave spans
+        over the level vectors ``parts``."""
+        with tr.span("execute", **args) as sp:
+            out = fn()
+            block_all(out[0])
+        sp.args["n_waves"] = out[1]
+        self._trace_window(tr, sp, parts, out[1])
+        return out
+
     def run(self, state: Any, total_tasks: int, *, seed: int = 0):
         self._check_state(state)
         if self.overlap:
@@ -158,23 +227,37 @@ class WindowedEngine(Engine):
                     f"engine {self.name!r} does not implement cross-window "
                     "overlap; use overlap=False (the barrier fallback)")
             return self._run_overlapped(state, total_tasks, seed=seed)
+        tr = current_tracer()
         base_key = prng.key(seed, device=self.device)
         t = 0
         n_windows = 0
         total_waves = 0
-        nxt = self._schedule(base_key, 0, min(self.window, total_tasks))
-        while t < total_tasks:
-            k = min(self.window, total_tasks - t)
-            cur = nxt
-            if t + k < total_tasks:
-                # double buffering: enqueue window t+1's schedule (conflict
-                # matrix + levels) before window t's waves
-                nxt = self._schedule(base_key, t + k,
-                                     min(self.window, total_tasks - t - k))
-            state, n_waves = self._execute(state, cur)
-            total_waves += n_waves
-            n_windows += 1
-            t += k
+        run_cm = (tr.span("run", engine=self.name, window=self.window,
+                          total_tasks=total_tasks, overlap=False)
+                  if tr is not None else nullcontext())
+        with run_cm:
+            nxt = self._dispatch_schedule(
+                tr, base_key, 0, min(self.window, total_tasks), index=0)
+            while t < total_tasks:
+                k = min(self.window, total_tasks - t)
+                cur = nxt
+                if t + k < total_tasks:
+                    # double buffering: enqueue window t+1's schedule
+                    # (conflict matrix + levels) before window t's waves
+                    nxt = self._dispatch_schedule(
+                        tr, base_key, t + k,
+                        min(self.window, total_tasks - t - k),
+                        index=n_windows + 1)
+                if tr is None:
+                    state, n_waves = self._execute(state, cur)
+                else:
+                    state, n_waves = self._traced_execute(
+                        tr, {"index": n_windows, "start": t, "count": k},
+                        [self._trace_parts(cur)],
+                        lambda: self._execute(state, cur))
+                total_waves += n_waves
+                n_windows += 1
+                t += k
         stats = {
             "total_tasks": total_tasks,
             "n_windows": n_windows,
@@ -219,34 +302,69 @@ class WindowedEngine(Engine):
         """The overlapped loop. One host sync per window: the fused
         drain reads its wave count; the boundary stats stay on the device
         and are read once after the loop."""
+        tr = current_tracer()
         base_key = prng.key(seed, device=self.device)
         t = 0
         n_windows = 0
         total_waves = 0
         bstats = []
-        cur = self._schedule_ov(base_key, 0, min(self.window, total_tasks))
-        lv = wave_levels(cur[2], cur[1])  # first window: no carry floor
-        while t < total_tasks:
-            k = min(self.window, total_tasks - t)
-            if t + k < total_tasks:
-                # enqueue window k+1's schedule and boundary (cross block,
-                # carry frontier, floored levels) before the fused drain
-                # of window k, on the one stream
-                nxt = self._schedule_ov(base_key, t + k,
-                                        min(self.window, total_tasks - t - k))
-                lv_nxt, b = self._boundary(cur[0], lv, nxt[0], nxt[1],
-                                           nxt[2])
-                bstats.append(b)
-                state, n_waves, lv_nxt = self._execute_pair(state, cur, lv,
-                                                            nxt, lv_nxt)
-                cur, lv = nxt, lv_nxt
-            else:
-                # last window: no partner — drain through the barrier
-                # executor
-                state, n_waves = self._execute_drain(state, cur, lv)
-            total_waves += n_waves
-            n_windows += 1
-            t += k
+        run_cm = (tr.span("run", engine=self.name, window=self.window,
+                          total_tasks=total_tasks, overlap=True)
+                  if tr is not None else nullcontext())
+        with run_cm:
+            cur = self._dispatch_schedule(
+                tr, base_key, 0, min(self.window, total_tasks), index=0,
+                ov=True)
+            lv = wave_levels(cur[2], cur[1])  # first window: no carry floor
+            while t < total_tasks:
+                k = min(self.window, total_tasks - t)
+                if t + k < total_tasks:
+                    # enqueue window k+1's schedule and boundary (cross
+                    # block, carry frontier, floored levels) before the
+                    # fused drain of window k, on the one stream
+                    nxt = self._dispatch_schedule(
+                        tr, base_key, t + k,
+                        min(self.window, total_tasks - t - k),
+                        index=n_windows + 1, ov=True)
+                    if tr is None:
+                        lv_nxt, b = self._boundary(cur[0], lv, nxt[0],
+                                                   nxt[1], nxt[2])
+                    else:
+                        with tr.span("boundary", index=n_windows) as bsp:
+                            lv_nxt, b = self._boundary(cur[0], lv, nxt[0],
+                                                       nxt[1], nxt[2])
+                            block_all((lv_nxt, b))
+                        bsp.args.update(
+                            overlap_depth=int(b[0]), early_tasks=int(b[1]),
+                            carry_mean=float(b[2]), carry_max=int(b[3]))
+                    bstats.append(b)
+                    if tr is None:
+                        state, n_waves, lv_nxt = self._execute_pair(
+                            state, cur, lv, nxt, lv_nxt)
+                    else:
+                        # wave widths from the pre-rebase levels of k+1
+                        state, n_waves, lv_nxt = self._traced_execute(
+                            tr, {"index": n_windows, "start": t,
+                                 "count": k, "fused": True},
+                            [self._trace_parts(cur, lv),
+                             self._trace_parts(nxt, lv_nxt)],
+                            lambda: self._execute_pair(state, cur, lv, nxt,
+                                                       lv_nxt))
+                    cur, lv = nxt, lv_nxt
+                else:
+                    # last window: no partner — drain through the barrier
+                    # executor
+                    if tr is None:
+                        state, n_waves = self._execute_drain(state, cur, lv)
+                    else:
+                        state, n_waves = self._traced_execute(
+                            tr, {"index": n_windows, "start": t,
+                                 "count": k, "drain": True},
+                            [self._trace_parts(cur, lv)],
+                            lambda: self._execute_drain(state, cur, lv))
+                total_waves += n_waves
+                n_windows += 1
+                t += k
         if bstats:  # read the per-boundary stats once
             ints = torch.stack([torch.stack([b[0], b[1], b[3]])
                                 for b in bstats]).cpu().tolist()

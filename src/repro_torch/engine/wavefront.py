@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core.wavefront import execute_window
 from repro_torch.engine.base import WindowedEngine, register_engine
+from repro_torch.obs.profiler import annotate
 
 
 @register_engine
@@ -45,15 +46,22 @@ class WavefrontEngine(WindowedEngine):
         ran early has none left and runs zero waves."""
         rec_a, rec_b = cur[0], nxt[0]
         n_waves = int(lv_a.max()) + 1
-        for w in range(n_waves):
-            # fused wave: window k's tasks at level w, then window k+1's
-            # — the carry frontier keeps the two masks conflict-free
-            state = self.model.execute_wave(state, rec_a, lv_a == w)
-            state = self.model.execute_wave(state, rec_b, lv_b == w)
+        with annotate("protocol.execute_pair", lv_a.device):
+            for w in range(n_waves):
+                # fused wave: window k's tasks at level w, then window
+                # k+1's — the carry frontier keeps the two masks
+                # conflict-free
+                state = self.model.execute_wave(state, rec_a, lv_a == w)
+                state = self.model.execute_wave(state, rec_b, lv_b == w)
         # rebase the next window onto the new level clock; executed (and
         # invalid) tasks drop to -1
         lv_b = torch.where(lv_b >= n_waves, lv_b - n_waves, -1)
         return state, n_waves, lv_b
+
+    def _trace_parts(self, sched, levels=None):
+        # the barrier schedule carries its levels in slot 2; the
+        # overlapped loop re-levels and passes them explicitly
+        return sched[2] if levels is None else levels
 
     def _execute_drain(self, state, cur, lv):
         """Partnerless drain (the last or only window) through the

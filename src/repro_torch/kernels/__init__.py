@@ -16,6 +16,12 @@ Kernels:
              protocol's O(W²) record check, paper §3.5), and the Wi×Wj
              cross-window block of the overlapped engine
   levels   — wave levels over the conflict matrix (the level recurrence)
+  axelrod  — one Axelrod wave on gathered trait rows: overlap, bounded-
+             confidence gate, first-maximum feature pick (every Axelrod
+             ``execute_wave``)
+  sir      — one SIRS wave of type-A updates on the ring, reading each
+             subset's halo straight from the agent states (every SIRS
+             ``execute_wave`` on the paper's ring)
 """
 from __future__ import annotations
 

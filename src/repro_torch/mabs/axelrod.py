@@ -16,6 +16,9 @@ hand-written ``conflicts`` (paper rule src_i == tgt_j or tgt_i == tgt_j,
 plus the anti-dependence tgt_i == src_j under the strict closure). Only
 the strict rule is bit-exact against sequential execution.
 
+A wave gathers the source and target trait rows, computes the
+interaction through ``kernels/axelrod`` (the hand-written kernel on the
+card, its plain version on the CPU) and scatters the new target rows.
 Float arithmetic follows the reference's float32 exactly: the overlap is
 a float32 sum over F divided by F (``jnp.mean``), ``1 - ω`` is formed in
 Python doubles and rounded to float32 (jnp's weak-typed scalar), and the
@@ -27,7 +30,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.model import MABSModel
+from repro_torch.core.model import MABSModel, scatter_rows
+from repro_torch.kernels.axelrod import axelrod_wave
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -64,13 +68,6 @@ class AxelrodModel(MABSModel):
         else:
             dev = resolve_device(device)
         self.device = dev
-        # the Python-double constants as jnp's weak-typed float32 scalars;
-        # F too, so the overlap is a true division on the card (a host
-        # scalar divisor becomes a multiply by its reciprocal there)
-        self._one, self._lo, self._nf = (
-            torch.tensor(x, dtype=torch.float32, device=dev)
-            for x in (1.0, 1.0 - self.cfg.omega,
-                      float(self.cfg.n_features)))
 
     # ------------------------------------------------------------- state
     def init_state(self, rng: torch.Tensor, *, device=None):
@@ -117,24 +114,18 @@ class AxelrodModel(MABSModel):
         return prng.uniform(ku), prng.uniform(kf, (self.cfg.n_features,))
 
     def _apply(self, state, recipes, draws, mask):
-        cfg = self.cfg
         traits = state["traits"]
         src, tgt = recipes["src"].long(), recipes["tgt"].long()
         u, gumb = draws
-        s_tr, t_tr = traits[src], traits[tgt]                      # [W, F]
-        eq = s_tr == t_tr
-        overlap = eq.sum(dim=-1).to(torch.float32) / self._nf
-        interact = (mask & (u < overlap) & (overlap < self._one)
-                    & (overlap >= self._lo))
-        # one differing feature, uniformly: the first max of the uniforms
-        scores = torch.where(~eq, gumb, -1.0)
-        feat = scores.argmax(dim=-1)                               # [W]
-        new_val = s_tr.gather(1, feat[:, None])[:, 0]
-        # inactive tasks write a scratch row past the end (no host sync)
-        ext = torch.cat([traits, traits.new_zeros((1, cfg.n_features))])
-        ext[torch.where(interact, tgt, cfg.n_agents), feat] = torch.where(
-            interact, new_val, 0)
-        return {"traits": ext[:cfg.n_agents]}
+        new_t, interact = axelrod_wave(traits[src], traits[tgt], u, gumb,
+                                       mask, omega=self.cfg.omega)
+        # whole target rows where interact, the rest to the scratch row
+        # (no host sync). This equals the reference's one-feature scatter:
+        # the interacting tasks of one wave have distinct targets
+        # (tgt_i == tgt_j conflicts under both rules), so no row is
+        # written twice, and a row's other features are its pre-wave
+        # values, which no other task of the wave writes.
+        return {"traits": scatter_rows(traits, tgt, new_t, interact)}
 
     def execute_wave(self, state, recipes, mask):
         return self._apply(state, recipes, self._draws(recipes), mask)

@@ -18,10 +18,16 @@ subset graph (``Topology.block_graph``, every block adjacent to itself):
   B_i:  R = {M + i},                 W = {i}
 whose derived rules equal the hand-written ``conflicts``.
 
-Float arithmetic follows the reference's float32 exactly: the infected
-fraction is a float32 mean over the degree, the rates are rounded to
-float32 before use (jnp's weak-typed scalars), and the uniforms come from
-the recipe keys, s per task.
+On the paper's ring (a ``Topology`` built by ``ring``) the A tasks'
+transition goes through ``kernels/sir`` (the hand-written kernel on the
+card, its plain version on the CPU), which reads each subset's
+neighbourhood as a contiguous halo; on any other topology it goes through
+the neighbour table (``_transition``, the reference's generalized model).
+``reference_step`` always takes ``_transition``. Float arithmetic follows
+the reference's float32 exactly on both routes: the infected fraction is
+a float32 mean over the degree (a sum of 0/1, exact, divided by k), the
+rates are rounded to float32 before use (jnp's weak-typed scalars), and
+the uniforms come from the recipe keys, s per task.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.model import MABSModel, scatter_rows
+from repro_torch.kernels.sir import sir_wave
 from repro_torch.topology import Topology, ring
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -82,6 +89,11 @@ class SIRModel(MABSModel):
         self._p_si, self._p_ir, self._p_rs = (
             torch.tensor(x, dtype=torch.float32, device=self.topology.device)
             for x in (cfg.p_si, cfg.p_ir, cfg.p_rs))
+        # the paper's ring takes the wave kernel, which reads each
+        # subset's neighbourhood as one contiguous halo of s + k states
+        k = self.topology.ring_k
+        self._ring_k = (k if k is not None and cfg.subset_size + k
+                        <= cfg.n_agents else None)
 
     # ------------------------------------------------------------- state
     def init_state(self, rng: torch.Tensor, *, device=None):
@@ -157,14 +169,23 @@ class SIRModel(MABSModel):
         return prng.uniform(recipes["key"], (self.cfg.subset_size,))
 
     def _apply(self, state, recipes, u, mask):
-        s_sz = self.cfg.subset_size
+        cfg = self.cfg
+        s_sz = cfg.subset_size
         states, new_states = state["states"], state["new_states"]
         subset, ttype = recipes["subset"], recipes["type"]
         agents = (subset[:, None] * s_sz
                   + torch.arange(s_sz, dtype=torch.int32,
                                  device=subset.device)[None, :])  # [W, s]
-        # type A: compute new states from current states
-        nxt = self._transition(states, agents, u)
+        # type A: compute new states from current states — on the ring
+        # through the wave kernel (every row, whatever the mask: reading
+        # the mask on the host would be a sync), elsewhere through the
+        # neighbour table
+        if self._ring_k is None:
+            nxt = self._transition(states, agents, u)
+        else:
+            nxt = sir_wave(states, subset, u, n_agents=cfg.n_agents,
+                           k=self._ring_k, subset_size=s_sz, p_si=cfg.p_si,
+                           p_ir=cfg.p_ir, p_rs=cfg.p_rs)
         new_states = scatter_rows(new_states, agents, nxt,
                                   (mask & (ttype == 0))[:, None])
         # type B: commit new states

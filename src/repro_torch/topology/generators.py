@@ -54,7 +54,7 @@ def ring(n: int, k: int, *, device=None) -> Topology:
     nbrs = (v + torch.cat([steps, -steps])[None, :]) % n
     nbrs = torch.sort(nbrs, dim=1).values
     deg = torch.full((n,), k, dtype=torch.int32, device=dev)
-    return Topology(neighbors=nbrs.to(torch.int32), degrees=deg)
+    return Topology(neighbors=nbrs.to(torch.int32), degrees=deg, ring_k=k)
 
 
 def lattice2d(height: int, width: int, *, neighborhood: str = "von_neumann",

@@ -49,6 +49,10 @@ class Topology:
 
     neighbors: torch.Tensor  # [n_nodes, max_degree] int32, -1 padded
     degrees: torch.Tensor    # [n_nodes] int32
+    #: k when this is the ring lattice of ``ring`` (v ± 1..k/2 mod n),
+    #: else None: a neighbourhood that is a contiguous slice of the ring,
+    #: which SIRS's wave kernel reads as a halo. ``to`` keeps it.
+    ring_k: int | None = None
 
     # ---------------------------------------------------------- properties
     @property
@@ -121,7 +125,8 @@ class Topology:
         return self.neighbors[v, j.long()]
 
     def to(self, device) -> "Topology":
-        return Topology(self.neighbors.to(device), self.degrees.to(device))
+        return Topology(self.neighbors.to(device), self.degrees.to(device),
+                        self.ring_k)
 
     # -------------------------------------------------------- derived graphs
     def block_graph(self, block_size: int) -> "Topology":

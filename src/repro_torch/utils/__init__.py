@@ -1,2 +1,3 @@
-"""Utilities: the ``jax.random``-exact PRNG (``prng``) and the device
-policy of the entry points (``device``)."""
+"""Utilities: the ``jax.random``-exact PRNG (``prng``), the device
+policy of the entry points (``device``) and fenced timing
+(``timing``)."""

@@ -1,10 +1,12 @@
 """The port on the card: the hand-written kernels against their plain
-PyTorch versions, bit for bit, and small wavefront and wavefront_overlap
-runs through them against the port's oracle and its CPU run. Every test is marked ``cuda``
+PyTorch versions, bit for bit, small wavefront and wavefront_overlap
+runs through them against the port's oracle and its CPU run, and a traced
+run against the untraced one. Every test is marked ``cuda``
 and skips without a card. The file imports no JAX, so it runs on a GPU
-machine that has only PyTorch:
+machine that has only PyTorch (``--noconftest``: tests/conftest.py
+imports JAX):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
 import pytest
 
@@ -12,6 +14,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
 from repro_torch.core import ProtocolConfig, run_engine, run_oracle  # noqa: E402
+from repro_torch.kernels.axelrod import axelrod as axelrod_kernel  # noqa: E402
+from repro_torch.kernels.axelrod import axelrod_wave  # noqa: E402
 from repro_torch.kernels.conflict import conflict as conflict_kernel  # noqa: E402
 from repro_torch.kernels.conflict.ops import (  # noqa: E402
     conflict_block,
@@ -19,6 +23,8 @@ from repro_torch.kernels.conflict.ops import (  # noqa: E402
 )
 from repro_torch.kernels.levels import levels as levels_kernel  # noqa: E402
 from repro_torch.kernels.levels.ops import wave_levels  # noqa: E402
+from repro_torch.kernels.sir import sir as sir_kernel  # noqa: E402
+from repro_torch.kernels.sir import sir_wave  # noqa: E402
 from repro_torch.mabs import (  # noqa: E402
     AxelrodConfig,
     AxelrodModel,
@@ -27,8 +33,9 @@ from repro_torch.mabs import (  # noqa: E402
     SISModel,
     VoterModel,
 )
+from repro_torch.obs import tracing, validate_chrome_trace  # noqa: E402
 from repro_torch.topology import watts_strogatz  # noqa: E402
-from repro_torch.utils import prng  # noqa: E402
+from repro_torch.utils import prng, timing  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +167,19 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda_device):
         conflict_kernel.conflict_block_cuda(wide, wri, wide, wri, vi, vi)
 
 
+def _count_waves(model):
+    """Count the model's execute_wave calls: [n]."""
+    calls = [0]
+    execute_wave = model.execute_wave
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return execute_wave(*args, **kwargs)
+
+    model.execute_wave = counted
+    return calls
+
+
 def _small_models(device):
     topo = watts_strogatz(3000, 6, 0.1, prng.key(4, device=device),
                           device=device)
@@ -191,13 +211,19 @@ def test_overlap_on_card_matches_oracle_and_cpu(cuda_device, name):
                               device=cuda_device)
     cfg = ProtocolConfig(window=256)
     total = 256 * 6 + 100
+    waves = _count_waves(model)
     conflict_kernel.launches = conflict_kernel.block_launches = 0
     levels_kernel.launches = 0
+    axelrod_kernel.launches = sir_kernel.launches = 0
     out, stats = run_engine(model, state0, total, seed=6, config=cfg,
                             engine="wavefront_overlap", device=cuda_device)
     assert conflict_kernel.launches == levels_kernel.launches \
         == stats["n_windows"] == 7
     assert conflict_kernel.block_launches == 6
+    # the wave kernels: once per execute_wave call of their model
+    assert axelrod_kernel.launches == (waves[0] if name == "axelrod" else 0)
+    assert sir_kernel.launches == (waves[0] if name == "sirs" else 0)
+    assert stats["total_waves"] <= waves[0] <= 2 * stats["total_waves"]
     oracle = run_oracle(model, state0, total, seed=6, config=cfg,
                         device=cuda_device)
     cpu_out, cpu_stats = run_engine(
@@ -207,3 +233,100 @@ def test_overlap_on_card_matches_oracle_and_cpu(cuda_device, name):
     for k in out:
         assert torch.equal(out[k], oracle[k])
         assert torch.equal(out[k].cpu(), cpu_out[k])
+
+
+def _axelrod_inputs(seed, w, f, device):
+    """Traits over 3 values, one row with every feature equal, uniforms
+    on a grid of quarters (ties in the pick and the gate)."""
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.randint(0, 3, (w, f), generator=gen, dtype=torch.int32)
+    t = torch.randint(0, 3, (w, f), generator=gen, dtype=torch.int32)
+    t[0] = s[0]
+    u = torch.randint(0, 4, (w,), generator=gen) / 4
+    g = torch.randint(0, 4, (w, f), generator=gen) / 4
+    m = torch.rand(w, generator=gen) < (0.2, 0.7, 1.0)[seed % 3]
+    return tuple(x.to(device) for x in (s, t, u, g, m))
+
+
+@pytest.mark.parametrize("w", [1, 37, 4096])
+@pytest.mark.parametrize("f", [1, 3, 37, 500])
+@pytest.mark.parametrize("omega", [0.95, 0.3])
+def test_axelrod_kernel_matches_plain(cuda_device, w, f, omega):
+    args = _axelrod_inputs(w + f, w, f, cuda_device)
+    before = axelrod_kernel.launches
+    got_t, got_i = axelrod_wave(*args, omega=omega)
+    assert axelrod_kernel.launches == before + 1
+    want_t, want_i = axelrod_wave(*args, omega=omega, backend="torch")
+    assert torch.equal(got_t, want_t) and torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("w,s_sz,k,n", [(1, 10, 6, 40), (37, 50, 14, 4000),
+                                        (8, 1000, 14, 1_000_000),
+                                        (4096, 25, 2, 4000)])
+def test_sir_kernel_matches_plain(cuda_device, w, s_sz, k, n):
+    gen = torch.Generator().manual_seed(w + s_sz)
+    states = torch.randint(0, 3, (n,), generator=gen).to(torch.int8)
+    subsets = torch.randint(0, n // s_sz, (w,), generator=gen,
+                            dtype=torch.int32)
+    subsets[0], subsets[-1] = 0, n // s_sz - 1  # both ends wrap
+    u = torch.rand((w, s_sz), generator=gen)
+    args = tuple(x.to(cuda_device) for x in (states, subsets, u))
+    kw = dict(n_agents=n, k=k, subset_size=s_sz, p_si=.8, p_ir=.1, p_rs=.3)
+    before = sir_kernel.launches
+    got = sir_wave(*args, **kw)
+    assert sir_kernel.launches == before + 1
+    assert torch.equal(got, sir_wave(*args, backend="torch", **kw))
+
+
+def test_wave_kernels_refuse_what_they_do_not_take(cuda_device):
+    s, t, u, g, m = _axelrod_inputs(0, 64, 3, cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        axelrod_kernel.axelrod_wave_cuda(s.long(), t, u, g, m, omega=0.9)
+    with pytest.raises(ValueError, match="shape"):
+        axelrod_kernel.axelrod_wave_cuda(s, t, u[:10], g, m, omega=0.9)
+    states = torch.zeros(40, dtype=torch.int8, device=cuda_device)
+    subsets = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    uu = torch.zeros((4, 36), device=cuda_device)
+    with pytest.raises(ValueError, match="s \\+ k <= N"):
+        sir_kernel.sir_wave_cuda(states, subsets, uu, k=6, p_si=.8,
+                                 p_ir=.1, p_rs=.3)
+    with pytest.raises(TypeError, match="dtype"):
+        sir_kernel.sir_wave_cuda(states.int(), subsets, uu[:, :10], k=6,
+                                 p_si=.8, p_ir=.1, p_rs=.3)
+
+
+def test_block_all_fences_the_card(cuda_device, monkeypatch):
+    calls = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda dev=None: calls.append(dev) or sync(dev))
+    out = {"a": torch.ones(4, device=cuda_device),
+           "b": (torch.zeros(2, device=cuda_device), torch.ones(3), 1)}
+    assert timing.block_all(out) is out
+    assert calls == [cuda_device]
+    assert timing.cuda_event_ms(lambda: out["a"] * 2, reps=3) >= 0.0
+
+
+@pytest.mark.parametrize("name", ["axelrod", "sirs"])
+def test_traced_run_on_card_equals_untraced(cuda_device, name):
+    model = _small_models(cuda_device)[name]
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    cfg = ProtocolConfig(window=256)
+    plain, plain_stats = run_engine(model, state0, 256 * 4, seed=6,
+                                    config=cfg, engine="wavefront_overlap",
+                                    device=cuda_device)
+    with tracing() as tr:
+        out, stats = run_engine(model, state0, 256 * 4, seed=6, config=cfg,
+                                engine="wavefront_overlap",
+                                device=cuda_device)
+    assert stats == plain_stats
+    for k in out:
+        assert torch.equal(out[k], plain[k])
+    events = tr.export()["traceEvents"]
+    validate_chrome_trace(events)
+    spans = [e["name"] for e in events if e["ph"] == "B"]
+    assert spans.count("schedule") == spans.count("execute") == 4
+    assert spans.count("boundary") == 3
+    waves = [e for e in events if e["name"] == "wave"]
+    assert sum(e["args"]["width"] for e in waves) == 256 * 4

@@ -44,7 +44,12 @@ def _imported_roots(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"prng.py", "graph.py", "voter.py", "sis.py", "axelrod.py",
-            "sir.py", "base.py", "chip_smoke.py", "bridge.py"} <= names
+            "sir.py", "base.py", "chip_smoke.py", "bridge.py", "trace.py",
+            "profiler.py", "provenance.py", "stats.py", "timing.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for kernel in ("conflict", "levels", "axelrod", "sir"):
+        for part in ("ops", "ref", kernel):
+            assert f"src/repro_torch/kernels/{kernel}/{part}.py" in rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
