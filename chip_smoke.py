@@ -23,6 +23,17 @@ failure:
      rows with every feature equal; the SIRS wave at W in {1, 8, 37,
      4096} x (s, k) in {(10, 6), (50, 14), (400, 14), (1000, 14), (25, 2)}
      on rings of N in {4,000, 10^6}, subsets at both ends of the ring;
+     and the flash kernel against ``attention_ref`` (TF32 off) in float32
+     and bfloat16 at the reference's five sweep shapes, smollm-360m's
+     prefill (H 15, Hkv 5, D 64, T = S = 2048), danube's (H 32, Hkv 8,
+     D 120, T = S = 8192, window 4096), deepseek's (H = Hkv = 32, D 128),
+     an odd T, S > T with and without a window, and a decode shape,
+     each on inputs of std 0.3 (a flat softmax) and of std 1 (a peaked
+     one) — float32 within atol 2e-5 / rtol 1e-4 (atol 1e-4 from
+     S = 2048 on), bfloat16 within atol 2e-3 / rtol 1e-2, the max error
+     printed per case; on the peaked inputs the bfloat16 tolerance must
+     reject attention with uniform weights (q = 0), so a kernel that
+     mis-weights its keys fails;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
      on the card, W = 4096, 2^22 tasks each (``--tasks`` cuts the task
@@ -66,10 +77,34 @@ failure:
   9. counts the host syncs per window of each path over 16 windows
      (``torch.cuda.set_sync_debug_mode("warn")``), tracing off; more
      than 19 per 16 windows on the overlap path fails;
- 10. times each kernel at W = 4096 on real windows (CUDA events, median
+ 10. the LM serving path at smollm-360m's full width (32 layers,
+     d_model 960, vocab 49152), random weights from the seed: 16 requests
+     with prompt lengths 64-1536 drawn from the seed, 64 new tokens each,
+     8 slots, max_len 2048, prefill chunks of 128. Checked (float32
+     weights, TF32 off): the ``ServingEngine``'s tokens must equal
+     per-request sequential decoding whose one-shot prefill runs through
+     the flash kernel (``attn_impl="pallas"``, 32 launches a request),
+     under one tie rule — a token that differs at a top-two margin above
+     1e-4 fails, at or below it the request is a float32 tie and its
+     remaining tokens are not compared, more than one tie fails; the
+     levels counter is set to 0 just before the engine's run and the
+     flash counter just before the sequential decoding, each read just
+     after and above 0; the one-shot prefill's last logits through the
+     kernel must equal those through ``attention_ref`` within 1e-3 at
+     T = 2048.
+     Timed (bf16 weights, the same requests): generated tokens/s,
+     iterations and mean wave, fenced ms per decode wave and per prefill
+     chunk, the device's idle share over iterations 40-49
+     (torch.profiler), host syncs per iteration, and one-shot prefill ms
+     at T = 2048 with "pallas" and with "chunked";
+ 11. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound; the summary line
      holds SIS's conflict and levels times (the widest footprint of the
-     graph models), and the wave kernels at F = 500 and s = 1000.
+     graph models), and the wave kernels at F = 500 and s = 1000; flash
+     at smollm-360m's prefill shape in bf16 beside its plain version and
+     ``scaled_dot_product_attention`` (the library yardstick, which the
+     port never calls), bound by max(bytes / 3.35 TB/s, causal flops /
+     989 TFLOP/s).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -926,10 +961,10 @@ def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
 
 # ----------------------------------------------------------- kernel times
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-               ops):
+               ops, ops_per_s=CUDA_CORE_OPS_PER_S):
     """One entry of the kernels line: bound = max(bytes / HBM rate,
-    ops / CUDA-core rate), in ms."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    ops / ``ops_per_s``, the CUDA-core rate unless given), in ms."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
@@ -1114,6 +1149,447 @@ def wave_kernel_rows(torch, ov_models, wide, launches, errs):
         rows[kname] = row  # the widest case comes last
     return [rows["axelrod_wave"], rows["sir_wave"]]
 
+# ------------------------------------------------------- the LM serving path
+#: flash parity cases: (name, B, H, Hkv, T, S, D, causal, window)
+FLASH_CASES = (
+    ("sweep 1", 2, 4, 2, 128, 128, 64, True, None),
+    ("sweep 2", 1, 8, 2, 128, 256, 64, True, None),
+    ("sweep 3", 2, 4, 2, 256, 256, 64, True, 128),
+    ("sweep 4", 1, 2, 1, 128, 128, 128, False, None),
+    ("sweep 5", 1, 4, 4, 256, 256, 32, True, 64),
+    ("smollm prefill", 1, 15, 5, 2048, 2048, 64, True, None),
+    ("danube prefill", 1, 32, 8, 8192, 8192, 120, True, 4096),
+    ("deepseek prefill", 1, 32, 32, 2048, 2048, 128, True, None),
+    ("odd T", 1, 15, 5, 1001, 1001, 64, True, None),
+    ("S > T", 1, 15, 5, 333, 2048, 64, True, None),
+    ("S > T window", 1, 32, 8, 77, 5000, 120, True, 4096),
+    ("decode", 8, 15, 5, 1, 1600, 64, True, None),
+)
+#: std of the parity inputs: 0.3 (scores of std ~0.1, a flat softmax, as
+#: the reference's sweep) and 1 (scores of std ~1, a peaked one)
+FLASH_SCALES = (0.3, 1.0)
+LM_ARCH = "smollm-360m"
+LM_REQUESTS = 16
+LM_PROMPT_LENS = (64, 1536)      # inclusive range of the prompt lengths
+LM_MAX_NEW = 64
+LM_SLOTS = 8
+LM_MAX_LEN = 2048
+LM_PREFILL_CHUNK = 128
+#: a token that differs at a top-two margin at or below this is a float32
+#: tie (at most one request may end in one)
+TIE_MARGIN = 1e-4
+#: the profiled sample: iterations [PROFILE_START, PROFILE_START + 10)
+PROFILE_START = 40
+PROFILE_ITERATIONS = 10
+WARMUP_ITERATIONS = 20
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_TENSOR_OPS_PER_S = 989e12
+
+
+def no_tf32(torch) -> None:
+    """Full float32 products for the checks (hopper-kernels guide, §6)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def flash_inputs(torch, b, h, hkv, t, s, d, dtype, seed, scale=0.3):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [(torch.randn(sh, generator=gen, device=DEVICE) * scale).to(dtype)
+            for sh in ((b, h, t, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def check_flash_parity(torch) -> float:
+    """The flash kernel against attention_ref on the card, float32 and
+    bfloat16, at every FLASH_CASES shape and FLASH_SCALES input std.
+    Tolerances: float32 atol 2e-5, rtol 1e-4 (the reference's flash
+    sweep), atol 1e-4 from S = 2048 on (longer sums in another order);
+    bfloat16 atol 2e-3, rtol 1e-2 (one bf16 rounding of the output is at
+    most 2^-8 of it; the measured error is ~5e-4). On the peaked inputs
+    the bfloat16 tolerance must reject uniform attention (q = 0), which
+    shows that it would catch a kernel that mis-weights its keys.
+    Returns the bfloat16 error at smollm's prefill shape on the flat
+    inputs (the kernels line's)."""
+    from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.flash.ref import attention_ref
+
+    no_tf32(torch)
+    row_err = None
+    for i, (name, b, h, hkv, t, s, d, causal, window) in enumerate(
+            FLASH_CASES):
+        for scale in FLASH_SCALES:
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = flash_inputs(torch, b, h, hkv, t, s, d, dtype, i,
+                                       scale)
+                got = flash_attention(q, k, v, causal=causal, window=window)
+                want = attention_ref(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != want.shape:
+                    fail(f"flash {name}: {got.dtype} {tuple(got.shape)}, "
+                         f"expected {dtype} {tuple(want.shape)}")
+                if dtype == torch.float32:
+                    atol, rtol = (1e-4 if s >= 2048 else 2e-5), 1e-4
+                else:
+                    atol, rtol = 2e-3, 1e-2
+                limit = atol + rtol * want.float().abs()
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                if not torch.isfinite(got.float()).all() or bool(
+                        (diff > limit).any()):
+                    fail(f"flash kernel != plain version at {name} "
+                         f"(B={b} H={h} Hkv={hkv} T={t} S={s} D={d} "
+                         f"causal={causal} window={window} std={scale}) "
+                         f"{dtype}: max abs err {err}")
+                errs[str(dtype).split(".")[-1]] = err
+                if scale == 1.0 and dtype == torch.bfloat16:
+                    flat = attention_ref(torch.zeros_like(q), k, v,
+                                         causal=causal, window=window)
+                    off = (flat.float() - want.float()).abs()
+                    if not bool((off > limit).any()):
+                        fail(f"flash {name}: the bfloat16 tolerance "
+                             f"accepts uniform attention (max abs err "
+                             f"{float(off.max())})")
+                    errs["uniform_bfloat16"] = float(off.max())
+                    del flat, off
+                if (name == "smollm prefill" and scale == FLASH_SCALES[0]
+                        and dtype == torch.bfloat16):
+                    row_err = err
+                del q, k, v, got, want, diff, limit
+            log(f"parity flash {name} (B={b} H={h} Hkv={hkv} T={t} S={s} "
+                f"D={d} causal={causal} window={window} std={scale}): max "
+                f"abs err " + json.dumps(errs))
+    torch.cuda.empty_cache()
+    log(f"parity flash: {2 * len(FLASH_SCALES) * len(FLASH_CASES)} cases "
+        f"within tolerance")
+    return row_err
+
+
+def lm_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    lo, hi = LM_PROMPT_LENS
+    lens = rng.randint(lo, hi + 1, size=LM_REQUESTS)
+    return [rng.randint(0, vocab, size=n).astype(np.int32) for n in lens]
+
+
+def lm_model(torch, dtype: str, attn_impl: str = "chunked"):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(LM_ARCH).replace(param_dtype=dtype,
+                                      attn_impl=attn_impl)
+    return build_model(cfg, DEVICE)
+
+
+def run_engine_lm(torch, model, params, prompts, on_step=None):
+    """The serving engine over every prompt; returns (engine, seconds:
+    host clock around the run, ending in a synchronize)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(model, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        prefill_chunk=LM_PREFILL_CHUNK, device=DEVICE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_MAX_NEW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.step():
+        if on_step is not None:
+            on_step(eng, t0)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def sequential_lm(torch, model, params, prompt):
+    """Per-request decoding: one-shot prefill (through the model's
+    attn_impl), then decode_step. Returns (tokens, top-two margins)."""
+    states = model.init_states(1, LM_MAX_LEN)
+    logits, states = model.prefill(
+        params, {"tokens": torch.as_tensor(prompt, device=DEVICE)[None]},
+        states)
+    toks, margins = [], []
+    for i in range(LM_MAX_NEW):
+        top = torch.topk(logits[0], 2).values
+        host = torch.stack([logits[0].argmax().float(),
+                            top[0] - top[1]]).cpu()
+        toks.append(int(host[0]))
+        margins.append(float(host[1]))
+        if i + 1 < LM_MAX_NEW:
+            logits, states = model.decode_step(
+                params, torch.tensor([[toks[-1]]], dtype=torch.int32,
+                                     device=DEVICE), states)
+    return toks, margins
+
+
+def serving_checked(torch):
+    """smollm-360m at full width, float32 weights, TF32 off: the engine's
+    tokens against per-request sequential decoding whose one-shot
+    prefill runs through the flash kernel, under one tie rule; levels
+    launches counted over the engine's run, flash launches over the
+    sequential decoding; then the one-shot prefill with "pallas" against
+    "ref". Returns the launches."""
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.kernels.levels import levels as levels_kernel
+
+    no_tf32(torch)
+    model = lm_model(torch, "float32")
+    params = model.init(SEED, device=DEVICE)
+    seq_model = lm_model(torch, "float32", "pallas")
+    prompts = lm_prompts(model.cfg.vocab)
+
+    levels_kernel.launches = 0
+    eng, secs = run_engine_lm(torch, model, params, prompts)
+    n_levels = levels_kernel.launches
+    t0 = time.perf_counter()
+    flash_kernel.launches = 0
+    seq = [sequential_lm(torch, seq_model, params, p) for p in prompts]
+    seq_s = time.perf_counter() - t0
+    n_flash = flash_kernel.launches
+    launches = {"flash_attention": n_flash, "wave_levels": n_levels}
+    if n_flash != model.cfg.n_layers * LM_REQUESTS:
+        fail(f"serving: {n_flash} flash launches, expected one per layer "
+             f"and request ({model.cfg.n_layers * LM_REQUESTS})")
+    if n_levels != eng.iterations or n_levels == 0:
+        fail(f"serving: {n_levels} levels launches for {eng.iterations} "
+             f"iterations")
+
+    by_rid = {r.rid: r for r in eng.finished}
+    if sorted(by_rid) != list(range(LM_REQUESTS)):
+        fail(f"serving: finished {sorted(by_rid)}")
+    ties = []
+    for rid, (toks, margins) in enumerate(seq):
+        got = by_rid[rid].out_tokens
+        if len(got) != LM_MAX_NEW:
+            fail(f"serving: request {rid} made {len(got)} tokens")
+        diff = next((i for i, (a, b) in enumerate(zip(got, toks))
+                     if a != b), None)
+        if diff is None:
+            continue
+        log(f"serving: request {rid} differs from sequential decoding at "
+            f"step {diff}: engine {got[diff]}, sequential {toks[diff]}, "
+            f"top-two margin {margins[diff]}")
+        if margins[diff] > TIE_MARGIN:
+            fail(f"serving: request {rid} differs at step {diff} at a "
+                 f"top-two margin {margins[diff]} > {TIE_MARGIN}")
+        ties.append(rid)
+    if len(ties) > 1:
+        fail(f"serving: {len(ties)} float32 ties (requests {ties}); at "
+             f"most one is allowed")
+
+    # one-shot prefill: the flash kernel against the plain attention
+    import numpy as np
+
+    prompt = np.random.RandomState(SEED + 1).randint(
+        0, model.cfg.vocab, size=LM_MAX_LEN).astype(np.int32)
+    lp = {}
+    for impl in ("pallas", "ref"):
+        m = lm_model(torch, "float32", impl)
+        logits, _ = m.prefill(params, {"tokens": torch.as_tensor(
+            prompt, device=DEVICE)[None]}, m.init_states(1, LM_MAX_LEN))
+        lp[impl] = logits.float()
+    prefill_err = float((lp["pallas"] - lp["ref"]).abs().max())
+    if not torch.isfinite(lp["pallas"]).all() or prefill_err > 1e-3:
+        fail(f"one-shot prefill at T={LM_MAX_LEN}: pallas vs ref logits "
+             f"differ by {prefill_err} (> 1e-3)")
+    row = {"arch": LM_ARCH, "params": "float32", "requests": LM_REQUESTS,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "generated_tokens": sum(len(r.out_tokens) for r in eng.finished),
+           "iterations": eng.iterations, "ties": ties,
+           "engine_seconds": secs, "sequential_seconds": seq_s,
+           "prefill_pallas_vs_ref_max_abs": prefill_err,
+           "launches": launches, "stats": eng.run_stats()}
+    log("serving checked: " + json.dumps(row))
+    del params, lp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serving_timed(torch):
+    """bf16 weights, the same requests: tokens/s, iterations and mean
+    wave; fenced ms per decode wave and per prefill chunk; the device's
+    idle share over a sample of PROFILE_ITERATIONS iterations; host syncs
+    per iteration; one-shot prefill ms at T = 2048 ("pallas" and
+    "chunked")."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.utils.timing import median_time
+
+    model = lm_model(torch, "bfloat16")
+    params = model.init(SEED, device=DEVICE)
+    prompts = lm_prompts(model.cfg.vocab)
+    marks = {}
+
+    def first_iterations(n):
+        """A fresh engine over the requests, stepped n iterations."""
+        e = ServingEngine(model, params, n_slots=LM_SLOTS,
+                          max_len=LM_MAX_LEN, prefill_chunk=LM_PREFILL_CHUNK,
+                          device=DEVICE)
+        for i, p in enumerate(prompts):
+            e.submit(Request(rid=i, prompt=p, max_new_tokens=LM_MAX_NEW))
+        for _ in range(n):
+            e.step()
+        torch.cuda.synchronize()
+        return e
+
+    def mark(eng, t0):
+        if eng.iterations in (PROFILE_START,
+                              PROFILE_START + PROFILE_ITERATIONS):
+            torch.cuda.synchronize()
+            marks[eng.iterations] = time.perf_counter()
+
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
+
+    first_iterations(WARMUP_ITERATIONS)                    # warm-up
+    eng, secs = run_engine_lm(torch, model, params, prompts, mark)
+    lap("throughput")
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    row = {"arch": LM_ARCH, "params": "bfloat16", "requests": LM_REQUESTS,
+           "generated_tokens": tokens, "seconds": secs,
+           "tokens_per_s": tokens / secs, "iterations": eng.iterations,
+           "mean_wave": sum(eng.wave_sizes) / len(eng.wave_sizes),
+           "ms_per_iteration": secs / eng.iterations * 1e3}
+
+    # fenced ms per decode wave and per prefill chunk
+    fenced = {"_exec_prefill": [], "_exec_decode_wave": []}
+    originals = {k: getattr(ServingEngine, k) for k in fenced}
+
+    def wrap(name):
+        def timed(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](self, *args)
+            torch.cuda.synchronize()
+            fenced[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for k in fenced:
+        setattr(ServingEngine, k, wrap(k))
+    try:
+        run_engine_lm(torch, model, params, prompts)
+    finally:
+        for k, fn in originals.items():
+            setattr(ServingEngine, k, fn)
+    row["decode_wave_ms"] = (sum(fenced["_exec_decode_wave"])
+                             / len(fenced["_exec_decode_wave"]) * 1e3)
+    row["prefill_chunk_ms"] = (sum(fenced["_exec_prefill"])
+                               / len(fenced["_exec_prefill"]) * 1e3)
+    row["decode_waves"] = len(fenced["_exec_decode_wave"])
+    row["prefill_chunks"] = len(fenced["_exec_prefill"])
+
+    lap("fenced")
+
+    # device busy / idle over iterations [PROFILE_START, + 10): the same
+    # iterations of the unprofiled throughput run give the wall time
+    sample = first_iterations(PROFILE_START)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_ITERATIONS):
+            sample.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    if not kernels:
+        fail("serving: the profiler saw no device time")
+    if {e.name for e in kernels if e.name.startswith("protocol.")}:
+        fail("serving: profiler ranges counted as kernels")
+    us = Counter()
+    for e in kernels:
+        us[e.name] += e.device_time
+    busy_s = sum(us.values()) / 1e6
+    wall_s = marks[PROFILE_START + PROFILE_ITERATIONS] - marks[PROFILE_START]
+    row["profiled_iterations"] = [PROFILE_START,
+                                  PROFILE_START + PROFILE_ITERATIONS]
+    row["device_busy_ms"] = busy_s * 1e3
+    row["wall_ms"] = wall_s * 1e3
+    row["idle_share"] = 1.0 - busy_s / wall_s
+    row["kernels_per_iteration"] = len(kernels) / PROFILE_ITERATIONS
+    row["top"] = [[k[:60], t / 1e3] for k, t in us.most_common(5)]
+    lap("profile")
+
+    # host syncs per iteration, over the first PROFILE_START iterations
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            first_iterations(PROFILE_START)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    row["host_syncs_per_iteration"] = syncs / PROFILE_START
+    lap("syncs")
+
+    # one-shot prefill at B = 1, T = 2048
+    import numpy as np
+
+    prompt = torch.as_tensor(np.random.RandomState(SEED + 1).randint(
+        0, model.cfg.vocab, size=LM_MAX_LEN).astype(np.int32),
+        device=DEVICE)[None]
+    for impl in ("pallas", "chunked"):
+        m = lm_model(torch, "bfloat16", impl)
+        row[f"prefill_{impl}_ms"] = median_time(
+            lambda: m.prefill(params, {"tokens": prompt},
+                              m.init_states(1, LM_MAX_LEN))[0],
+            repeats=5) * 1e3
+    lap("prefill")
+    row["phase_seconds"] = phase_s
+    log("serving timed: " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+
+
+def flash_row(torch, launches, err):
+    """The flash kernel at smollm-360m's prefill shape in bf16 (B = 1,
+    H 15, Hkv 5, D 64, T = S = 2048, causal): kernel, plain version and
+    SDPA (the library yardstick, used nowhere in the port)."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.flash.ref import attention_ref
+    from repro_torch.utils.timing import cuda_event_ms
+
+    b, h, hkv, t, s, d = 1, 15, 5, 2048, 2048, 64
+    q, k, v = flash_inputs(torch, b, h, hkv, t, s, d, torch.bfloat16, 99)
+    ms = cuda_event_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain = cuda_event_ms(lambda: attention_ref(q, k, v, causal=True),
+                          reps=5)
+    lib = cuda_event_ms(lambda: scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * b * h * t * d + 2 * b * hkv * s * d)
+    flops = 4 * b * h * t * s * d / 2          # causal: half the pairs
+    row = kernel_row("flash_attention", "src/repro_torch/csrc/flash.cu",
+                     "src/repro/kernels/flash/flash.py:127", launches, err,
+                     ms, plain, nbytes, flops,
+                     ops_per_s=BF16_TENSOR_OPS_PER_S)
+    row["library_ms"] = lib
+    log("kernel times flash smollm prefill bf16: " + json.dumps(
+        {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
+         "flops": flops, "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"]}))
+    return row
+
+
+def drive_lm(torch) -> dict:
+    """The serving path's phases; returns its kernel launches."""
+    t0 = time.perf_counter()
+    launches = serving_checked(torch)
+    log(f"serving checked: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serving_timed(torch)
+    log(f"serving timed: {time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1159,7 +1635,8 @@ def main(argv=None) -> None:
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build_logs = _build.build(["conflict", "levels", "axelrod", "sir"])
+    build_logs = _build.build(["conflict", "levels", "axelrod", "sir",
+                               "flash"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(build_logs) or 'cached'})")
     for name, text in build_logs.items():
@@ -1172,7 +1649,8 @@ def main(argv=None) -> None:
             "levels": check_levels_parity(torch, wave_levels),
             "conflict_block": check_block_parity(torch, conflict_block),
             "axelrod_wave": check_axelrod_parity(torch, axelrod_wave),
-            "sir_wave": check_sir_parity(torch, sir_wave)}
+            "sir_wave": check_sir_parity(torch, sir_wave),
+            "flash_attention": check_flash_parity(torch)}
     log(f"parity: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1210,13 +1688,19 @@ def main(argv=None) -> None:
              f"more than {OVERLAP_SYNCS_MAX}")
     log(f"sync count: {time.perf_counter() - t0:.1f} s")
 
+    lm_launches = drive_lm(torch)
+
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)
-        + "; task-size phase: " + json.dumps(wide_launches))
+        + "; task-size phase: " + json.dumps(wide_launches)
+        + "; serving path: " + json.dumps(lm_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
              for k, v in ov_launches.items()}
+    total["levels"] += lm_launches["wave_levels"]
     rows = kernel_rows(torch, models, ov_models, total, errs)
     rows += wave_kernel_rows(torch, ov_models, wide, total, errs)
+    rows.append(flash_row(torch, lm_launches["flash_attention"],
+                          errs["flash_attention"]))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

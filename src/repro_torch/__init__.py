@@ -7,8 +7,12 @@ and without cross-window overlap), ``mabs`` (voter, SIS, Axelrod, SIRS),
 ``topology`` (padded-CSR graphs and generators), ``kernels``
 (hand-written Hopper kernels with their plain PyTorch versions), ``obs``
 (span tracer, stats registry, profiler ranges, provenance), ``utils``
-(the ``jax.random``-exact PRNG, device policy, timing) and ``bridge``
-(numpy hand-over from the reference).
+(the ``jax.random``-exact PRNG, device policy, timing), ``bridge``
+(numpy hand-over from the reference), and the LM serving path of the
+dense family: ``configs`` (the architecture configs), ``models``
+(layers, attention with the ring KV cache, the decoder stack, ``Model``),
+``serving`` (the protocol-scheduled ``ServingEngine``) and
+``launch/serve.py``.
 
 The port imports torch and numpy, never JAX and nothing of ``repro``.
 Entry points run on the card unless a caller names another device.

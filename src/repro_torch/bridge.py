@@ -13,6 +13,14 @@ here. Every function places its result on ``device`` (default: the card).
                        recipes; uint32 leaves are key data (SIS's per-task
                        keys) and become port keys. Injecting these lets a
                        test tell a PRNG fault from a schedule fault.
+  lm_params_from_numpy the reference's LM parameter pytree (``Model.init``
+                       output as numpy) -> the port's ``LMParams`` module
+                       tree, stacked ``[L, ...]`` segment leaves unstacked
+                       per layer
+  lm_states_from_numpy the reference's serving states (``segs`` of KV
+                       caches with ``k``, ``v``, ``length``, ``kpos``, and
+                       ``pos``) -> the port's (and back with
+                       ``lm_states_to_numpy``)
 """
 from __future__ import annotations
 
@@ -58,3 +66,100 @@ def state_to_numpy(state: dict) -> dict:
 def recipes_from_numpy(recipes: dict, device=None) -> dict:
     dev = resolve_device(device)
     return {k: _leaf(v, dev) for k, v in recipes.items()}
+
+
+# ---------------------------------------------------------------- the LM
+#: numpy dtypes without a torch counterpart, carried by their bits
+_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name in _BITS:
+        bits, dtype = _BITS[x.dtype.name]
+        return torch.from_numpy(
+            np.ascontiguousarray(x).view(bits).copy()).view(dtype).to(dev)
+    return torch.tensor(x, device=dev)
+
+
+def _flat(tree, prefix: str = ""):
+    """(dotted path, leaf) pairs of a nested dict/list pytree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def lm_params_from_numpy(model, tree: dict):
+    """The reference's parameter pytree (numpy leaves) as the port's
+    ``LMParams`` on the model's device. Segment leaves are stacked
+    ``[L, ...]`` in the reference and one module per layer here
+    (``segments.<i>.<layer>.<path>``). Every parameter must be matched
+    by exactly one leaf of the same shape."""
+    leaves = {}
+    for path, x in _flat(tree):
+        parts = path.split(".")
+        if parts[0] == "segments":
+            x = np.asarray(x)
+            for layer in range(x.shape[0]):
+                name = ".".join(parts[:2] + [str(layer)] + parts[2:])
+                leaves[name] = x[layer]
+        else:
+            leaves[path] = x
+    params = model.empty_params()
+    names = dict(params.named_parameters())
+    if set(names) != set(leaves):
+        raise ValueError(
+            f"parameter trees differ: only in the port "
+            f"{sorted(set(names) - set(leaves))[:5]}, only in the "
+            f"reference {sorted(set(leaves) - set(names))[:5]}")
+    with torch.no_grad():
+        for name, p in names.items():
+            x = _tensor(leaves[name], p.device)
+            if x.shape != p.shape or x.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {x.dtype} "
+                                 f"{tuple(x.shape)}, port {p.dtype} "
+                                 f"{tuple(p.shape)}")
+            p.copy_(x)
+    return params
+
+
+_KV = ("k", "v", "length", "kpos")
+
+
+def _kv_leaf(cache, name):
+    return cache[name] if isinstance(cache, dict) else getattr(cache, name)
+
+
+def lm_states_from_numpy(states: dict, device=None) -> dict:
+    """Serving states of the reference (``segs``: per segment
+    ``{"kv": KVCache}`` with stacked leaves; ``pos``), numpy leaves, as
+    the port's states on ``device``."""
+    from repro_torch.models.attention import KVCache
+
+    dev = resolve_device(device)
+    return {
+        "segs": [{"kv": KVCache(*(_tensor(_kv_leaf(s["kv"], n), dev)
+                                  for n in _KV))} for s in states["segs"]],
+        "pos": _tensor(states["pos"], dev),
+    }
+
+
+def lm_states_to_numpy(states: dict) -> dict:
+    """A numpy copy of the port's serving states: ``segs`` of
+    ``{"kv": {"k", "v", "length", "kpos"}}`` (float leaves as float32)
+    and ``pos``."""
+    def arr(t):  # a copy: the port updates its states in place
+        t = t.detach().float() if t.is_floating_point() else t.detach()
+        return np.array(t.cpu().numpy())
+
+    return {
+        "segs": [{"kv": {n: arr(getattr(s["kv"], n)) for n in _KV}}
+                 for s in states["segs"]],
+        "pos": arr(states["pos"]),
+    }

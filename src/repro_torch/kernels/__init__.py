@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the scheduling hot spots.
+"""Hand-written Hopper kernels for the hot spots.
 
 Each subpackage keeps the reference's three files:
   <name>.py — the ctypes binding of the CUDA kernel in ``csrc/<name>.cu``
@@ -22,6 +22,8 @@ Kernels:
   sir      — one SIRS wave of type-A updates on the ring, reading each
              subset's halo straight from the agent states (every SIRS
              ``execute_wave`` on the paper's ring)
+  flash    — fused attention (causal / sliding-window, GQA, online
+             softmax): the one-shot prefill with ``attn_impl="pallas"``
 """
 from __future__ import annotations
 

@@ -330,3 +330,136 @@ def test_traced_run_on_card_equals_untraced(cuda_device, name):
     assert spans.count("boundary") == 3
     waves = [e for e in events if e["name"] == "wave"]
     assert sum(e["args"]["width"] for e in waves) == 256 * 4
+
+
+# ------------------------------------------------------- flash and the LM
+FLASH_CASES = [  # b, h, hkv, t, s, d, causal, window
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 128, 256, 64, True, None),
+    (2, 4, 2, 256, 256, 64, True, 128),
+    (1, 2, 1, 128, 128, 128, False, None),
+    (1, 4, 4, 256, 256, 32, True, 64),
+    (1, 15, 5, 300, 300, 64, True, None),     # smollm heads, ragged T
+    (1, 4, 1, 77, 301, 120, True, 100),       # D = 120, S > T, window
+    (2, 3, 3, 1, 33, 16, True, None),         # one query (decode shape)
+    (1, 2, 2, 5, 5, 8, False, 2),             # a window without causal
+]
+
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 1e-4),
+                                             (torch.bfloat16, 2e-3, 1e-2)])
+@pytest.mark.parametrize("scale", [0.3, 1.0])
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, no_tf32, dtype, atol, rtol,
+                                    scale, b, h, hkv, t, s, d, causal,
+                                    window):
+    """The kernel against ``attention_ref`` on the same tensors, inputs of
+    std 0.3 (a flat softmax) and 1 (a peaked one): float32 within the
+    reference's flash tolerance; bfloat16 within atol 2e-3 / rtol 1e-2,
+    which one bf16 rounding of the output (at most 2^-8 of it) fits."""
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.flash.ref import attention_ref
+
+    gen = torch.Generator().manual_seed(t * 7 + s)
+    q, k, v = (torch.randn(sh, generator=gen) * scale
+               for sh in ((b, h, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+    n0 = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,causal,window", FLASH_CASES)
+def test_flash_bf16_tolerance_rejects_uniform_weights(cuda_device, no_tf32,
+                                                      b, h, hkv, t, s, d,
+                                                      causal, window):
+    """On peaked inputs (std 1) the bfloat16 tolerance above rejects
+    attention with uniform weights (q = 0): a kernel that mis-weighted
+    its keys would fail it."""
+    from repro_torch.kernels.flash.ref import attention_ref
+
+    gen = torch.Generator().manual_seed(t * 7 + s)
+    q, k, v = (torch.randn(sh, generator=gen).to(cuda_device, torch.bfloat16)
+               for sh in ((b, h, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+    want = attention_ref(q, k, v, causal=causal, window=window).float()
+    flat = attention_ref(torch.zeros_like(q), k, v, causal=causal,
+                         window=window).float()
+    assert bool(((flat - want).abs() > 2e-3 + 1e-2 * want.abs()).any())
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash.flash import flash_attention_cuda
+
+    def qkv(t, s, d, dtype=torch.float32):
+        return (torch.zeros((2, t, d), dtype=dtype, device=cuda_device),
+                torch.zeros((1, s, d), dtype=dtype, device=cuda_device),
+                torch.zeros((1, s, d), dtype=dtype, device=cuda_device))
+
+    kw = dict(n_q_heads=2, n_kv_heads=1, causal=True, window=None,
+              scale=0.125)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(*qkv(4, 4, 129), **kw)
+    with pytest.raises(ValueError, match="T <= S"):
+        flash_attention_cuda(*qkv(5, 4, 16), **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(*qkv(4, 4, 16, torch.float16), **kw)
+    with pytest.raises(ValueError, match="heads"):
+        flash_attention_cuda(*qkv(4, 4, 16), **{**kw, "n_kv_heads": 2})
+
+
+def test_serving_on_card_matches_sequential_through_flash(cuda_device,
+                                                          no_tf32):
+    """Reduced smollm on the card: the engine's tokens equal sequential
+    decoding whose one-shot prefill runs through the flash kernel (one
+    launch per layer and request); the engine launches the levels kernel
+    once per iteration."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("smollm-360m").reduced()
+    model = build_model(cfg, cuda_device)
+    params = model.init(0, device=cuda_device)
+    seq = build_model(cfg.replace(attn_impl="pallas"), cuda_device)
+    rng = __import__("numpy").random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype("int32")
+               for n in (5, 9, 70, 3)]
+    n0 = flash_kernel.launches
+    refs = []
+    for p in prompts:
+        st = seq.init_states(1, 96)
+        lg, st = seq.prefill(params, {"tokens": torch.tensor(
+            p, device=cuda_device)[None]}, st)
+        toks = [int(lg[0].argmax())]
+        for _ in range(5):
+            lg, st = seq.decode_step(params, torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device=cuda_device), st)
+            toks.append(int(lg[0].argmax()))
+        refs.append(toks)
+    assert flash_kernel.launches - n0 == cfg.n_layers * len(prompts)
+    levels_kernel.launches = 0
+    eng = ServingEngine(model, params, n_slots=3, max_len=96,
+                        prefill_chunk=16, device=cuda_device)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    assert [r.out_tokens for r in done] == refs
+    assert levels_kernel.launches == eng.iterations

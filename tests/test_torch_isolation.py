@@ -47,9 +47,14 @@ def test_port_files_found():
             "sir.py", "base.py", "chip_smoke.py", "bridge.py", "trace.py",
             "profiler.py", "provenance.py", "stats.py", "timing.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for kernel in ("conflict", "levels", "axelrod", "sir"):
+    for kernel in ("conflict", "levels", "axelrod", "sir", "flash"):
         for part in ("ops", "ref", kernel):
             assert f"src/repro_torch/kernels/{kernel}/{part}.py" in rel
+    for module in ("models/api.py", "models/attention.py",
+                   "models/transformer.py", "models/layers.py",
+                   "serving/engine.py", "configs/base.py",
+                   "configs/registry.py", "launch/serve.py"):
+        assert f"src/repro_torch/{module}" in rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -153,3 +158,26 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("conflict")
     assert not (tmp_path / "kernels").exists()
+
+
+def test_lm_entry_points_without_device_raise(no_cuda):
+    """The LM path's entry points, called without a device, raise before
+    placing anything: building a model, drawing its parameters, the
+    serving engine and the serve launcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("smollm-360m").reduced()
+    for call in (lambda: build_model(cfg), lambda: Model(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = build_model(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    params = model.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, params, n_slots=2, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "smollm-360m", "--reduced"])
