@@ -8,8 +8,8 @@ Run from the root of a checkout. Phases, each of which exits non-zero on
 failure:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels from src/repro_torch/csrc (one nvcc
-     per source, in parallel) and prints the build seconds;
+  2. builds the port's CUDA kernels from src/repro_torch/csrc (six
+     sources, one nvcc each, in parallel) and prints the build seconds;
   3. holds each kernel bit for bit against its plain PyTorch version on
      the card: conflict at W in {1, 37, 128, 129, 1000, 4096}, nr in
      {1, 21}, nw in {1, 2}, both hazard rules; levels at the same W on
@@ -33,7 +33,15 @@ failure:
      S = 2048 on), bfloat16 within atol 2e-3 / rtol 1e-2, the max error
      printed per case; on the peaked inputs the bfloat16 tolerance must
      reject attention with uniform weights (q = 0), so a kernel that
-     mis-weights its keys fails;
+     mis-weights its keys fails; and the wkv6 kernel against
+     ``wkv6_ref`` in float32 and bfloat16 inputs at the reference's four
+     sweep shapes, rwkv6-3b's prefill (B 1, H 40, T 2048, D 64), ragged
+     T in {1, 37, 129}, D = 128 and a decode step (B 8, T 1), each from
+     s0 = 0 and from a random s0, with decays near 1 and spread over
+     (0, 1) — o and the final state within WKV6_ATOL x the case's
+     largest output + WKV6_RTOL x |output|, the max error printed per
+     case; the tolerance must reject a recurrence without the u bonus
+     and one that decays S before the read, so a loose tolerance fails;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
      on the card, W = 4096, 2^22 tasks each (``--tasks`` cuts the task
@@ -96,7 +104,18 @@ failure:
      iterations and mean wave, fenced ms per decode wave and per prefill
      chunk, the device's idle share over iterations 40-49
      (torch.profiler), host syncs per iteration, and one-shot prefill ms
-     at T = 2048 with "pallas" and with "chunked";
+     at T = 2048 with "pallas" and with "chunked".
+     Then the RWKV6 serving path at rwkv6-3b's full width and depth (32
+     layers, d_model 2560, 40 WKV heads of 64, d_ff 8960, vocab 65536),
+     the same requests with 32 new tokens each, every time-mix through
+     the wkv6 kernel (``attn_impl="pallas"``). Checked (float32, TF32
+     off): the engine's tokens against sequential decoding under the tie
+     rule; the wkv6 counter set to 0 just before each run and read just
+     after, exactly 32 x (prefill chunks + decode waves) over the
+     engine's run and 32 x 16 x 32 over the sequential decoding; levels
+     once per iteration; the one-shot prefill at T = 2048 through
+     "pallas" against "chunked" — last-token logits and layer 0's state
+     within RWKV_PREFILL_TOL. Timed (bf16): as for smollm;
  11. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound; the summary line
      holds SIS's conflict and levels times (the widest footprint of the
@@ -104,7 +123,11 @@ failure:
      at smollm-360m's prefill shape in bf16 beside its plain version and
      ``scaled_dot_product_attention`` (the library yardstick, which the
      port never calls), bound by max(bytes / 3.35 TB/s, causal flops /
-     989 TFLOP/s).
+     989 TFLOP/s); wkv6 at rwkv6-3b's prefill shape (B 1, H 40, T 2048,
+     D 64, bf16, s0 = 0) beside its plain version (no library call
+     computes the recurrence), bound by max(bytes / 3.35 TB/s, flops /
+     67 TFLOP/s, the float32 CUDA-core rate). The kernels line lists
+     all seven kernels.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1185,6 +1208,37 @@ WARMUP_ITERATIONS = 20
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_TENSOR_OPS_PER_S = 989e12
 
+# the RWKV6 serving phase: the same requests, slots, max_len and chunks
+RWKV_ARCH = "rwkv6-3b"
+RWKV_MAX_NEW = 32
+#: wkv6 parity cases: (name, B, H, T, D)
+WKV6_CASES = (
+    ("sweep 1", 1, 2, 128, 64),
+    ("sweep 2", 2, 3, 256, 64),
+    ("sweep 3", 1, 1, 64, 128),
+    ("sweep 4", 1, 2, 32, 64),
+    ("rwkv6-3b prefill", 1, 40, 2048, 64),
+    ("ragged T=1", 1, 40, 1, 64),
+    ("ragged T=37", 1, 40, 37, 64),
+    ("ragged T=129", 1, 40, 129, 64),
+    ("D=128", 1, 8, 256, 128),
+    ("decode", 8, 40, 1, 64),
+)
+#: std of r, k, v, u and a random s0; the decay logit log(-log w) is
+#: N(-5, 0.5) (w near 1: long memory) or N(0, 1) (w spread over (0, 1))
+WKV6_STD = 0.5
+WKV6_DECAYS = {"near 1": (-5.0, 0.5), "spread": (0.0, 1.0)}
+#: wkv6 tolerance: |kernel - plain| <= atol·max|plain| + rtol·|plain|,
+#: the atol scaled by the case's largest output (float32 sums of D
+#: products in another order; bf16 inputs are read as float32 by both).
+#: Measured on an H100: at most 4.5e-7 x max|o| (22x room); the two
+#: faulty recurrences are off by at least 6.8e-3 x max|o|
+WKV6_ATOL, WKV6_RTOL = 1e-5, 1e-5
+#: one-shot prefill at T = 2048, "pallas" against "chunked" (float32):
+#: last-token logits and layer 0's state within this absolute error
+#: (measured on an H100: 1.55e-5 and 5.7e-6, with |s| up to 10.6)
+RWKV_PREFILL_TOL = 2e-4
+
 
 def no_tf32(torch) -> None:
     """Full float32 products for the checks (hopper-kernels guide, §6)."""
@@ -1264,6 +1318,114 @@ def check_flash_parity(torch) -> float:
     return row_err
 
 
+def wkv6_inputs(torch, b, h, t, d, dtype, seed, decay, s0):
+    """r, k, v, w [B, H, T, D] in ``dtype``, u [H, D] float32 and s0 (a
+    random [B, H, D, D] float32 state, or None), on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def f(*sh):
+        return torch.randn(sh, generator=gen, device=DEVICE)
+
+    mean, std = WKV6_DECAYS[decay]
+    r, k, v = (f(b, h, t, d) * WKV6_STD for _ in range(3))
+    w = torch.exp(-torch.exp(f(b, h, t, d) * std + mean))
+    u = f(h, d) * WKV6_STD
+    state = f(b, h, d, d) * WKV6_STD if s0 else None
+    return [x.to(dtype) for x in (r, k, v, w)] + [u], state
+
+
+def wkv6_wrong(torch, r, k, v, w, u, s0, *, drop_u=False,
+               decay_first=False):
+    """The recurrence with one fault, in float32: no ``u`` bonus, or the
+    decay applied to S before the read instead of after."""
+    b, h, t, d = r.shape
+    r, k, v, w, u = (x.float() for x in (r, k, v, w, u))
+    s = (torch.zeros((b, h, d, d), device=DEVICE) if s0 is None
+         else s0.clone())
+    o = torch.empty((b, h, t, d), device=DEVICE)
+    for i in range(t):
+        rt, kt, vt, wt = (x[:, :, i] for x in (r, k, v, w))
+        if decay_first:
+            s = wt[..., None] * s
+        bonus = 0.0 if drop_u else (rt * u * kt).sum(-1, keepdim=True)
+        o[:, :, i] = torch.einsum("bhk,bhkd->bhd", rt, s) + bonus * vt
+        if not decay_first:
+            s = wt[..., None] * s
+        s = s + kt[..., None] * vt[..., None, :]
+    return o
+
+
+def check_wkv6_parity(torch) -> float:
+    """The wkv6 kernel against the plain recurrence (kernels/wkv6/ref.py)
+    on the card, float32 and bfloat16 inputs, at every WKV6_CASES shape,
+    with s0 = 0 (no state) and a random s0, decays near 1 and spread over
+    (0, 1). Tolerance WKV6_ATOL / WKV6_RTOL on o and on the final state;
+    it must reject two wrong recurrences on o (the state is the same for
+    both): one without the u bonus, and one that decays S before the read
+    (except at T = 1 from s0 = 0, where the two orders agree). Returns the
+    bf16 error at rwkv6-3b's prefill shape, s0 = 0, spread decays."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    no_tf32(torch)
+    row_err, cases = None, 0
+    for i, (name, b, h, t, d) in enumerate(WKV6_CASES):
+        for decay in WKV6_DECAYS:
+            for s0 in (False, True):
+                errs = {}
+                for dtype in (torch.float32, torch.bfloat16):
+                    args, state = wkv6_inputs(torch, b, h, t, d, dtype, i,
+                                              decay, s0)
+                    o, sf = wkv6(*args, s0=state)
+                    want_o, want_s = wkv6_ref(*args, s0=state)
+                    torch.cuda.synchronize()
+                    if (o.shape != want_o.shape or sf.shape != want_s.shape
+                            or o.dtype != torch.float32):
+                        fail(f"wkv6 {name}: o {o.dtype} {tuple(o.shape)}, "
+                             f"s {tuple(sf.shape)}")
+                    key = str(dtype).split(".")[-1]
+                    for what, got, want in (("o", o, want_o),
+                                            ("s", sf, want_s)):
+                        limit = (WKV6_ATOL * float(want.abs().max())
+                                 + WKV6_RTOL * want.abs())
+                        diff = (got - want).abs()
+                        err = float(diff.max())
+                        if not torch.isfinite(got).all() or bool(
+                                (diff > limit).any()):
+                            fail(f"wkv6 kernel != plain version at {name} "
+                                 f"(B={b} H={h} T={t} D={d} decay={decay} "
+                                 f"s0={s0}) {dtype} {what}: max abs err "
+                                 f"{err} (max |plain| "
+                                 f"{float(want.abs().max())})")
+                        errs[f"{what}_{key}"] = err
+                    errs[f"max_abs_o_{key}"] = float(want_o.abs().max())
+                    limit = (WKV6_ATOL * float(want_o.abs().max())
+                             + WKV6_RTOL * want_o.abs())
+                    for fault in ("drop_u", "decay_first"):
+                        if fault == "decay_first" and t == 1 and not s0:
+                            continue
+                        bad = wkv6_wrong(torch, *args, state,
+                                         **{fault: True})
+                        off = (bad - want_o).abs()
+                        if not bool((off > limit).any()):
+                            fail(f"wkv6 {name} ({decay}, s0={s0}, {dtype}):"
+                                 f" the tolerance accepts a kernel with "
+                                 f"{fault} (max abs err {float(off.max())})")
+                        errs[f"{fault}_{key}"] = float(off.max())
+                    if (name == "rwkv6-3b prefill" and decay == "spread"
+                            and not s0 and dtype == torch.bfloat16):
+                        row_err = max(errs["o_bfloat16"], errs["s_bfloat16"])
+                    cases += 1
+                    del args, state, o, sf, want_o, want_s
+                log(f"parity wkv6 {name} (B={b} H={h} T={t} D={d} "
+                    f"decay={decay} s0={'random' if s0 else 0}): "
+                    + json.dumps(errs))
+    torch.cuda.empty_cache()
+    log(f"parity wkv6: {cases} cases within tolerance, both faults "
+        f"rejected")
+    return row_err
+
+
 def lm_prompts(vocab):
     import numpy as np
 
@@ -1273,16 +1435,17 @@ def lm_prompts(vocab):
     return [rng.randint(0, vocab, size=n).astype(np.int32) for n in lens]
 
 
-def lm_model(torch, dtype: str, attn_impl: str = "chunked"):
+def lm_model(torch, dtype: str, attn_impl: str = "chunked",
+             arch: str = LM_ARCH):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config(LM_ARCH).replace(param_dtype=dtype,
-                                      attn_impl=attn_impl)
+    cfg = get_config(arch).replace(param_dtype=dtype, attn_impl=attn_impl)
     return build_model(cfg, DEVICE)
 
 
-def run_engine_lm(torch, model, params, prompts, on_step=None):
+def run_engine_lm(torch, model, params, prompts, on_step=None,
+                  max_new=LM_MAX_NEW):
     """The serving engine over every prompt; returns (engine, seconds:
     host clock around the run, ending in a synchronize)."""
     from repro_torch.serving import Request, ServingEngine
@@ -1290,7 +1453,7 @@ def run_engine_lm(torch, model, params, prompts, on_step=None):
     eng = ServingEngine(model, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                         prefill_chunk=LM_PREFILL_CHUNK, device=DEVICE)
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_MAX_NEW))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.step():
@@ -1300,7 +1463,7 @@ def run_engine_lm(torch, model, params, prompts, on_step=None):
     return eng, time.perf_counter() - t0
 
 
-def sequential_lm(torch, model, params, prompt):
+def sequential_lm(torch, model, params, prompt, max_new=LM_MAX_NEW):
     """Per-request decoding: one-shot prefill (through the model's
     attn_impl), then decode_step. Returns (tokens, top-two margins)."""
     states = model.init_states(1, LM_MAX_LEN)
@@ -1308,17 +1471,47 @@ def sequential_lm(torch, model, params, prompt):
         params, {"tokens": torch.as_tensor(prompt, device=DEVICE)[None]},
         states)
     toks, margins = [], []
-    for i in range(LM_MAX_NEW):
+    for i in range(max_new):
         top = torch.topk(logits[0], 2).values
         host = torch.stack([logits[0].argmax().float(),
                             top[0] - top[1]]).cpu()
         toks.append(int(host[0]))
         margins.append(float(host[1]))
-        if i + 1 < LM_MAX_NEW:
+        if i + 1 < max_new:
             logits, states = model.decode_step(
                 params, torch.tensor([[toks[-1]]], dtype=torch.int32,
                                      device=DEVICE), states)
     return toks, margins
+
+
+def check_tokens(label, eng, seq, max_new) -> list:
+    """The engine's tokens against sequential decoding under the tie rule:
+    a token that differs at a top-two margin above TIE_MARGIN fails; at or
+    below it the request is a float32 tie and its remaining tokens are
+    not compared; more than one tie fails. Returns the tied requests."""
+    by_rid = {r.rid: r for r in eng.finished}
+    if sorted(by_rid) != list(range(LM_REQUESTS)):
+        fail(f"{label}: finished {sorted(by_rid)}")
+    ties = []
+    for rid, (toks, margins) in enumerate(seq):
+        got = by_rid[rid].out_tokens
+        if len(got) != max_new:
+            fail(f"{label}: request {rid} made {len(got)} tokens")
+        diff = next((i for i, (a, b) in enumerate(zip(got, toks))
+                     if a != b), None)
+        if diff is None:
+            continue
+        log(f"{label}: request {rid} differs from sequential decoding at "
+            f"step {diff}: engine {got[diff]}, sequential {toks[diff]}, "
+            f"top-two margin {margins[diff]}")
+        if margins[diff] > TIE_MARGIN:
+            fail(f"{label}: request {rid} differs at step {diff} at a "
+                 f"top-two margin {margins[diff]} > {TIE_MARGIN}")
+        ties.append(rid)
+    if len(ties) > 1:
+        fail(f"{label}: {len(ties)} float32 ties (requests {ties}); at "
+             f"most one is allowed")
+    return ties
 
 
 def serving_checked(torch):
@@ -1353,28 +1546,7 @@ def serving_checked(torch):
         fail(f"serving: {n_levels} levels launches for {eng.iterations} "
              f"iterations")
 
-    by_rid = {r.rid: r for r in eng.finished}
-    if sorted(by_rid) != list(range(LM_REQUESTS)):
-        fail(f"serving: finished {sorted(by_rid)}")
-    ties = []
-    for rid, (toks, margins) in enumerate(seq):
-        got = by_rid[rid].out_tokens
-        if len(got) != LM_MAX_NEW:
-            fail(f"serving: request {rid} made {len(got)} tokens")
-        diff = next((i for i, (a, b) in enumerate(zip(got, toks))
-                     if a != b), None)
-        if diff is None:
-            continue
-        log(f"serving: request {rid} differs from sequential decoding at "
-            f"step {diff}: engine {got[diff]}, sequential {toks[diff]}, "
-            f"top-two margin {margins[diff]}")
-        if margins[diff] > TIE_MARGIN:
-            fail(f"serving: request {rid} differs at step {diff} at a "
-                 f"top-two margin {margins[diff]} > {TIE_MARGIN}")
-        ties.append(rid)
-    if len(ties) > 1:
-        fail(f"serving: {len(ties)} float32 ties (requests {ties}); at "
-             f"most one is allowed")
+    ties = check_tokens("serving", eng, seq, LM_MAX_NEW)
 
     # one-shot prefill: the flash kernel against the plain attention
     import numpy as np
@@ -1404,12 +1576,104 @@ def serving_checked(torch):
     return launches
 
 
-def serving_timed(torch):
+def rwkv_serving_checked(torch):
+    """rwkv6-3b at full width, float32 weights, TF32 off, every time-mix
+    through the wkv6 kernel (``attn_impl="pallas"``) in the engine and in
+    the sequential decoding: the engine's tokens against sequential
+    decoding under the tie rule; the wkv6 counter set to 0 just before
+    each run and read just after — one launch per layer and prefill chunk
+    or decode wave over the engine's run, per layer and token over the
+    sequential decoding; then the one-shot prefill at T = 2048 through
+    "pallas" against "chunked" (the plain chunked math on the card):
+    last-token logits and layer 0's state. Returns the engine's launches
+    (wkv6 and levels)."""
+    import numpy as np
+
+    from repro_torch.kernels.levels import levels as levels_kernel
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+
+    no_tf32(torch)
+    model = lm_model(torch, "float32", "pallas", RWKV_ARCH)
+    params = model.init(SEED, device=DEVICE)
+    prompts = lm_prompts(model.cfg.vocab)
+    n_layers = model.cfg.n_layers
+
+    waves = {"n": 0, "decode_tasks": 0}
+
+    def count_waves(e, _t0):  # a step whose decode tasks grew ran a wave
+        waves["n"] += e.decode_tasks > waves["decode_tasks"]
+        waves["decode_tasks"] = e.decode_tasks
+
+    wkv6_kernel.launches = 0
+    levels_kernel.launches = 0
+    eng, secs = run_engine_lm(torch, model, params, prompts, count_waves,
+                              max_new=RWKV_MAX_NEW)
+    n_engine, n_levels = wkv6_kernel.launches, levels_kernel.launches
+    decode_waves = waves["n"]
+    want = n_layers * (eng.prefill_tasks + decode_waves)
+    if n_engine != want:
+        fail(f"rwkv serving: {n_engine} wkv6 launches over the engine's run, "
+             f"expected {n_layers} x ({eng.prefill_tasks} prefill chunks + "
+             f"{decode_waves} decode waves) = {want}")
+    if n_levels != eng.iterations or n_levels == 0:
+        fail(f"rwkv serving: {n_levels} levels launches for "
+             f"{eng.iterations} iterations")
+
+    t0 = time.perf_counter()
+    wkv6_kernel.launches = 0
+    seq = [sequential_lm(torch, model, params, p, RWKV_MAX_NEW)
+           for p in prompts]
+    seq_s = time.perf_counter() - t0
+    n_seq = wkv6_kernel.launches
+    if n_seq != n_layers * LM_REQUESTS * RWKV_MAX_NEW:
+        fail(f"rwkv serving: {n_seq} wkv6 launches over the sequential "
+             f"decoding, expected {n_layers} x {LM_REQUESTS} x "
+             f"{RWKV_MAX_NEW}")
+    ties = check_tokens("rwkv serving", eng, seq, RWKV_MAX_NEW)
+
+    prompt = torch.as_tensor(np.random.RandomState(SEED + 1).randint(
+        0, model.cfg.vocab, size=LM_MAX_LEN).astype(np.int32),
+        device=DEVICE)[None]
+    out = {}
+    for impl in ("pallas", "chunked"):
+        m = lm_model(torch, "float32", impl, RWKV_ARCH)
+        logits, st = m.prefill(params, {"tokens": prompt},
+                               m.init_states(1, LM_MAX_LEN))
+        out[impl] = (logits.float(), st["segs"][0]["tm"]["s"][0].clone())
+        del st
+    err_logits = float((out["pallas"][0] - out["chunked"][0]).abs().max())
+    err_s = float((out["pallas"][1] - out["chunked"][1]).abs().max())
+    if (not torch.isfinite(out["pallas"][0]).all()
+            or max(err_logits, err_s) > RWKV_PREFILL_TOL):
+        fail(f"rwkv one-shot prefill at T={LM_MAX_LEN}: pallas vs chunked "
+             f"logits differ by {err_logits}, layer-0 s by {err_s} "
+             f"(> {RWKV_PREFILL_TOL})")
+    row = {"arch": RWKV_ARCH, "params": "float32", "attn_impl": "pallas",
+           "requests": LM_REQUESTS, "max_new_tokens": RWKV_MAX_NEW,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "generated_tokens": sum(len(r.out_tokens) for r in eng.finished),
+           "iterations": eng.iterations, "prefill_chunks": eng.prefill_tasks,
+           "decode_waves": decode_waves, "ties": ties,
+           "engine_seconds": secs, "sequential_seconds": seq_s,
+           "prefill_pallas_vs_chunked_logits_max_abs": err_logits,
+           "prefill_pallas_vs_chunked_s_max_abs": err_s,
+           "max_abs_s": float(out["chunked"][1].abs().max()),
+           "launches": {"wkv6 engine": n_engine, "wkv6 sequential": n_seq,
+                        "wave_levels": n_levels},
+           "stats": eng.run_stats()}
+    log("rwkv serving checked: " + json.dumps(row))
+    del params, out, eng, model
+    torch.cuda.empty_cache()
+    return {"wkv6": n_engine, "wave_levels": n_levels}
+
+
+def serving_timed(torch, arch=LM_ARCH, max_new=LM_MAX_NEW,
+                  engine_impl="chunked"):
     """bf16 weights, the same requests: tokens/s, iterations and mean
     wave; fenced ms per decode wave and per prefill chunk; the device's
     idle share over a sample of PROFILE_ITERATIONS iterations; host syncs
     per iteration; one-shot prefill ms at T = 2048 ("pallas" and
-    "chunked")."""
+    "chunked"). The engine's model runs through ``engine_impl``."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -1417,7 +1681,7 @@ def serving_timed(torch):
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.utils.timing import median_time
 
-    model = lm_model(torch, "bfloat16")
+    model = lm_model(torch, "bfloat16", engine_impl, arch)
     params = model.init(SEED, device=DEVICE)
     prompts = lm_prompts(model.cfg.vocab)
     marks = {}
@@ -1428,7 +1692,7 @@ def serving_timed(torch):
                           max_len=LM_MAX_LEN, prefill_chunk=LM_PREFILL_CHUNK,
                           device=DEVICE)
         for i, p in enumerate(prompts):
-            e.submit(Request(rid=i, prompt=p, max_new_tokens=LM_MAX_NEW))
+            e.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
         for _ in range(n):
             e.step()
         torch.cuda.synchronize()
@@ -1450,10 +1714,11 @@ def serving_timed(torch):
         t_phase = now
 
     first_iterations(WARMUP_ITERATIONS)                    # warm-up
-    eng, secs = run_engine_lm(torch, model, params, prompts, mark)
+    eng, secs = run_engine_lm(torch, model, params, prompts, mark, max_new)
     lap("throughput")
     tokens = sum(len(r.out_tokens) for r in eng.finished)
-    row = {"arch": LM_ARCH, "params": "bfloat16", "requests": LM_REQUESTS,
+    row = {"arch": arch, "params": "bfloat16", "attn_impl": engine_impl,
+           "requests": LM_REQUESTS, "max_new_tokens": max_new,
            "generated_tokens": tokens, "seconds": secs,
            "tokens_per_s": tokens / secs, "iterations": eng.iterations,
            "mean_wave": sum(eng.wave_sizes) / len(eng.wave_sizes),
@@ -1476,7 +1741,7 @@ def serving_timed(torch):
     for k in fenced:
         setattr(ServingEngine, k, wrap(k))
     try:
-        run_engine_lm(torch, model, params, prompts)
+        run_engine_lm(torch, model, params, prompts, max_new=max_new)
     finally:
         for k, fn in originals.items():
             setattr(ServingEngine, k, fn)
@@ -1537,14 +1802,14 @@ def serving_timed(torch):
         0, model.cfg.vocab, size=LM_MAX_LEN).astype(np.int32),
         device=DEVICE)[None]
     for impl in ("pallas", "chunked"):
-        m = lm_model(torch, "bfloat16", impl)
+        m = lm_model(torch, "bfloat16", impl, arch)
         row[f"prefill_{impl}_ms"] = median_time(
             lambda: m.prefill(params, {"tokens": prompt},
                               m.init_states(1, LM_MAX_LEN))[0],
             repeats=5) * 1e3
     lap("prefill")
     row["phase_seconds"] = phase_s
-    log("serving timed: " + json.dumps(row))
+    log(f"serving timed {arch}: " + json.dumps(row))
     del params
     torch.cuda.empty_cache()
 
@@ -1580,15 +1845,70 @@ def flash_row(torch, launches, err):
     return row
 
 
-def drive_lm(torch) -> dict:
-    """The serving path's phases; returns its kernel launches."""
+def wkv6_row(torch, launches, err):
+    """The wkv6 kernel at rwkv6-3b's prefill shape (B = 1, H 40, T = 2048,
+    D 64, bf16 inputs, s0 = 0): kernel and plain version; no single
+    PyTorch call computes the recurrence, so no library time. The bound's
+    operations (5·D² + 5·D per step and head: r·S, the decay and the outer
+    product of the update, the bonus) are float32 CUDA-core work."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.utils.timing import cuda_event_ms
+
+    def cost(b, h, t, d, s0):
+        """(bytes, ops): r, k, v, w in bf16, o and s_final (and s0) in
+        float32; 5·D² + 5·D flops per step and head."""
+        nbytes = (4 * b * h * t * d * 2 + b * h * t * d * 4
+                  + (2 if s0 else 1) * b * h * d * d * 4)
+        return nbytes, b * h * t * (5 * d * d + 5 * d)
+
+    b, h, t, d = 1, 40, 2048, 64
+    args, _ = wkv6_inputs(torch, b, h, t, d, torch.bfloat16, 99, "spread",
+                          False)
+    ms = cuda_event_ms(lambda: wkv6(*args))
+    plain = cuda_event_ms(lambda: wkv6_ref(*args), reps=5)
+    nbytes, ops = cost(b, h, t, d, False)
+    row = kernel_row("wkv6", "src/repro_torch/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6/wkv6.py:133", launches, err,
+                     ms, plain, nbytes, ops)
+    log("kernel times wkv6 rwkv6-3b prefill bf16: " + json.dumps(
+        {"ms": ms, "plain_ms": plain, "library_ms": None, "bytes": nbytes,
+         "ops": ops, "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"]}))
+    # the engine's own shapes: a prefill chunk and a decode wave, with a
+    # carried state
+    for name, (b, h, t, d) in (("prefill chunk", (1, 40, LM_PREFILL_CHUNK,
+                                                  64)),
+                               ("decode wave", (LM_SLOTS, 40, 1, 64))):
+        args, state = wkv6_inputs(torch, b, h, t, d, torch.bfloat16, 98,
+                                  "spread", True)
+        shape_ms = cuda_event_ms(lambda: wkv6(*args, s0=state))
+        nbytes, ops = cost(b, h, t, d, True)
+        shape_row = kernel_row("wkv6", "", "", 0, 0.0, shape_ms, None,
+                               nbytes, ops)
+        log(f"kernel times wkv6 rwkv6-3b {name} bf16 (B={b} T={t}): "
+            + json.dumps({"ms": shape_ms, "bytes": nbytes, "ops": ops,
+                          "bound_ms": shape_row["bound_ms"],
+                          "bound_by": shape_row["bound_by"]}))
+    return row
+
+
+def drive_lm(torch) -> tuple[dict, dict]:
+    """The serving path's phases, smollm-360m then rwkv6-3b; returns the
+    kernel launches of each."""
     t0 = time.perf_counter()
     launches = serving_checked(torch)
     log(f"serving checked: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serving_timed(torch)
     log(f"serving timed: {time.perf_counter() - t0:.1f} s")
-    return launches
+    t0 = time.perf_counter()
+    rwkv_launches = rwkv_serving_checked(torch)
+    log(f"rwkv serving checked: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serving_timed(torch, RWKV_ARCH, RWKV_MAX_NEW, "pallas")
+    log(f"rwkv serving timed: {time.perf_counter() - t0:.1f} s")
+    return launches, rwkv_launches
 
 
 def main(argv=None) -> None:
@@ -1636,7 +1956,7 @@ def main(argv=None) -> None:
 
     t0 = time.perf_counter()
     build_logs = _build.build(["conflict", "levels", "axelrod", "sir",
-                               "flash"])
+                               "flash", "wkv6"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(build_logs) or 'cached'})")
     for name, text in build_logs.items():
@@ -1650,7 +1970,8 @@ def main(argv=None) -> None:
             "conflict_block": check_block_parity(torch, conflict_block),
             "axelrod_wave": check_axelrod_parity(torch, axelrod_wave),
             "sir_wave": check_sir_parity(torch, sir_wave),
-            "flash_attention": check_flash_parity(torch)}
+            "flash_attention": check_flash_parity(torch),
+            "wkv6": check_wkv6_parity(torch)}
     log(f"parity: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1688,17 +2009,20 @@ def main(argv=None) -> None:
              f"more than {OVERLAP_SYNCS_MAX}")
     log(f"sync count: {time.perf_counter() - t0:.1f} s")
 
-    lm_launches = drive_lm(torch)
+    lm_launches, rwkv_launches = drive_lm(torch)
 
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)
         + "; task-size phase: " + json.dumps(wide_launches)
-        + "; serving path: " + json.dumps(lm_launches))
+        + "; serving path: " + json.dumps(lm_launches)
+        + "; rwkv serving path: " + json.dumps(rwkv_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
              for k, v in ov_launches.items()}
-    total["levels"] += lm_launches["wave_levels"]
+    total["levels"] += (lm_launches["wave_levels"]
+                        + rwkv_launches["wave_levels"])
     rows = kernel_rows(torch, models, ov_models, total, errs)
     rows += wave_kernel_rows(torch, ov_models, wide, total, errs)
+    rows.append(wkv6_row(torch, rwkv_launches["wkv6"], errs["wkv6"]))
     rows.append(flash_row(torch, lm_launches["flash_attention"],
                           errs["flash_attention"]))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

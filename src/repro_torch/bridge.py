@@ -18,8 +18,9 @@ here. Every function places its result on ``device`` (default: the card).
                        tree, stacked ``[L, ...]`` segment leaves unstacked
                        per layer
   lm_states_from_numpy the reference's serving states (``segs`` of KV
-                       caches with ``k``, ``v``, ``length``, ``kpos``, and
-                       ``pos``) -> the port's (and back with
+                       caches with ``k``, ``v``, ``length``, ``kpos``, or
+                       of RWKV states ``tm.last``, ``tm.s``, ``cm.last``;
+                       and ``pos``) -> the port's (and back with
                        ``lm_states_to_numpy``)
 """
 from __future__ import annotations
@@ -136,30 +137,46 @@ def _kv_leaf(cache, name):
     return cache[name] if isinstance(cache, dict) else getattr(cache, name)
 
 
+def _is_kv(x) -> bool:
+    """A KV cache of either side: a dict or NamedTuple of ``_KV``."""
+    names = x.keys() if isinstance(x, dict) else getattr(x, "_fields", ())
+    return set(names) == set(_KV)
+
+
 def lm_states_from_numpy(states: dict, device=None) -> dict:
-    """Serving states of the reference (``segs``: per segment
-    ``{"kv": KVCache}`` with stacked leaves; ``pos``), numpy leaves, as
-    the port's states on ``device``."""
-    from repro_torch.models.attention import KVCache
+    """Serving states of the reference (``segs``: per segment a tree of
+    stacked leaves — ``{"kv": KVCache}``, or the RWKV ``{"tm": {"last",
+    "s"}, "cm": {"last"}}``; ``pos``), numpy leaves, as the port's states
+    on ``device``."""
+    from repro_torch.models.attention import KVCache, map_state
 
     dev = resolve_device(device)
-    return {
-        "segs": [{"kv": KVCache(*(_tensor(_kv_leaf(s["kv"], n), dev)
-                                  for n in _KV))} for s in states["segs"]],
-        "pos": _tensor(states["pos"], dev),
-    }
+
+    def leaf(x):
+        if _is_kv(x):
+            return KVCache(*(_tensor(_kv_leaf(x, n), dev) for n in _KV))
+        return _tensor(x, dev)
+
+    return {"segs": [map_state(leaf, s, is_leaf=_is_kv)
+                     for s in states["segs"]],
+            "pos": _tensor(states["pos"], dev)}
 
 
 def lm_states_to_numpy(states: dict) -> dict:
     """A numpy copy of the port's serving states: ``segs`` of
-    ``{"kv": {"k", "v", "length", "kpos"}}`` (float leaves as float32)
-    and ``pos``."""
+    ``{"kv": {"k", "v", "length", "kpos"}}`` or ``{"tm": {"last", "s"},
+    "cm": {"last"}}`` (float leaves as float32) and ``pos``."""
+    from repro_torch.models.attention import KVCache, map_state
+
     def arr(t):  # a copy: the port updates its states in place
         t = t.detach().float() if t.is_floating_point() else t.detach()
         return np.array(t.cpu().numpy())
 
-    return {
-        "segs": [{"kv": {n: arr(getattr(s["kv"], n)) for n in _KV}}
-                 for s in states["segs"]],
-        "pos": arr(states["pos"]),
-    }
+    def leaf(x):
+        if isinstance(x, KVCache):
+            return {n: arr(getattr(x, n)) for n in _KV}
+        return arr(x)
+
+    return {"segs": map_state(leaf, list(states["segs"]),
+                              is_leaf=lambda x: isinstance(x, KVCache)),
+            "pos": arr(states["pos"])}

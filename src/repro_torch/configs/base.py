@@ -4,8 +4,8 @@ The port's copy of ``repro/configs/base.py``: one ``ArchConfig`` instance
 per architecture (configs/<id>.py), plus ``reduced()`` variants used by
 the CPU tests. The fields and their meaning are the reference's, so one
 config means the same thing in both packages; in the port
-``attn_impl="pallas"`` selects the hand-written CUDA flash kernel
-(kernels/flash). The sharding knobs (``gqa_expand`` aside) are read by
+``attn_impl="pallas"`` selects the hand-written CUDA kernels (flash in
+attention, kernels/flash; wkv6 in the RWKV6 time-mix, kernels/wkv6). The sharding knobs (``gqa_expand`` aside) are read by
 the reference's multi-device paths only and are kept for equality.
 """
 from __future__ import annotations

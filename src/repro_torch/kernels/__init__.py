@@ -24,6 +24,9 @@ Kernels:
              ``execute_wave`` on the paper's ring)
   flash    — fused attention (causal / sliding-window, GQA, online
              softmax): the one-shot prefill with ``attn_impl="pallas"``
+  wkv6     — the RWKV6 time-mix recurrence with data-dependent decay and
+             a carried state: every rwkv time-mix (one-shot prefill,
+             chunked prefill, decode) with ``attn_impl="pallas"``
 """
 from __future__ import annotations
 

@@ -1,0 +1,36 @@
+"""Public wrapper for the WKV6 recurrence, and the O(1) decode step.
+
+A CUDA tensor launches the hand-written kernel (wkv6.py, the port of
+``repro/kernels/wkv6/ops.py::wkv6``); a CPU tensor takes the plain
+version (ref.py). There is no other path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import use_kernel
+from repro_torch.kernels.wkv6.ref import wkv6_decode_step, wkv6_ref
+from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
+
+__all__ = ["wkv6", "wkv6_decode_step"]
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, *, s0: torch.Tensor | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 time-mix. r/k/v/w [B, H, T, D]; u [H, D]; s0 (optional)
+    [B, H, D, D], the state carried in.
+
+    Returns (o [B, H, T, D] f32, s_final [B, H, D, D] f32). Any T >= 1
+    (the reference's kernel wrapper needs a multiple of 32).
+    """
+    if not use_kernel(r):
+        return wkv6_ref(r, k, v, w, u, s0=s0)
+    b, h, t, d = r.shape
+    flat = lambda x: x.reshape(b * h, t, d).contiguous()  # noqa: E731
+    o, s_fin = wkv6_cuda(
+        flat(r), flat(k), flat(v), flat(w), u.float().contiguous(),
+        n_heads=h,
+        s0=None if s0 is None else s0.float().reshape(b * h, d, d)
+        .contiguous())
+    return o.reshape(b, h, t, d), s_fin.reshape(b, h, d, d)

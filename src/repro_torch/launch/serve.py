@@ -8,6 +8,10 @@ CPU only when named):
       --requests 8 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --requests 8 --max-new 16 --max-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --reduced --device cpu
 
 Weights are random, drawn from ``--seed``; prompts are token ids drawn
 from the same seed with numpy.

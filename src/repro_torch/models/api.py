@@ -1,11 +1,11 @@
 """Public model API — one ``Model`` object per architecture config.
 
-Port of ``repro/models/api.py`` for the decoder-only dense family. As in
-the reference the methods take the parameters and the streaming states
-as arguments (``params`` is the ``LMParams`` module tree that ``init``
-returns); unlike it, ``prefill`` and ``decode_step`` update the states'
-tensors **in place** and return the same dict. The serving path runs
-under ``torch.inference_mode``.
+Port of ``repro/models/api.py`` for the decoder-only dense family and the
+ssm family (RWKV6). As in the reference the methods take the parameters
+and the streaming states as arguments (``params`` is the ``LMParams``
+module tree that ``init`` returns); unlike it, ``prefill`` and
+``decode_step`` update the states' tensors **in place** and return the
+same dict. The serving path runs under ``torch.inference_mode``.
 
 ``Model(cfg, device)`` places everything it makes on ``device``; with
 ``device=None`` that is the card, and without one it raises (the port's
@@ -29,7 +29,8 @@ from repro_torch.utils.device import resolve_device
 
 
 class Model:
-    """Decoder-only dense family (``attn`` segments)."""
+    """Decoder-only dense and ssm families (``attn`` and ``rwkv``
+    segments)."""
 
     def __init__(self, cfg, device=None):
         self.cfg = cfg
@@ -104,7 +105,9 @@ class Model:
         ``cfg.attn_impl`` ("pallas": the flash kernel), then the tail of
         the prompt's KV written into an empty ring. chunked=True: the
         continuation-safe path of the serving engine — the chunk attends
-        against the (possibly non-empty) cache.
+        against the (possibly non-empty) cache. An ``rwkv`` layer runs
+        the same way in both: its time-mix carries the state through
+        ``cfg.attn_impl`` ("pallas": the wkv6 kernel).
         """
         cfg = self.cfg
         x, _ = self._embed_inputs(params, batch, include_prefix)

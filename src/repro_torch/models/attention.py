@@ -42,6 +42,28 @@ class KVCache(NamedTuple):
     kpos: torch.Tensor       # [B, Smax] int32 — absolute position per slot
 
 
+def map_state(fn, tree, is_leaf=None):
+    """``tree`` with ``fn`` applied to every tensor leaf (and to every node
+    that ``is_leaf`` accepts); dicts, lists and ``KVCache``s keep their
+    structure. The one walker of the serving state trees."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_state(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, KVCache):
+        return KVCache(*(fn(x) for x in tree))
+    if isinstance(tree, list):
+        return [map_state(fn, v, is_leaf) for v in tree]
+    return fn(tree)
+
+
+def state_leaves(tree) -> list[torch.Tensor]:
+    """The tensor leaves of a state tree, in ``map_state``'s order."""
+    leaves: list[torch.Tensor] = []
+    map_state(leaves.append, tree)
+    return leaves
+
+
 def init_kv_cache(batch, n_kv_heads, smax, head_dim, dtype, device,
                   *, n_layers: int | None = None) -> KVCache:
     """An empty ring; with ``n_layers`` every leaf gets a leading layer

@@ -74,6 +74,14 @@ class Init:
                         dtype=torch.float32, device=self.device)
         return (x * std).to(dtype)
 
+    def uniform(self, shape, dtype) -> torch.Tensor:
+        """U[0, 1) in float32, then ``dtype`` (the RWKV lerps)."""
+        if self.generator is None:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        x = torch.rand(shape, generator=self.generator, dtype=torch.float32,
+                       device=self.device)
+        return x.to(dtype)
+
     def full(self, shape, value: float, dtype) -> torch.Tensor:
         return torch.full(shape, value, dtype=dtype, device=self.device)
 

@@ -1,0 +1,216 @@
+"""RWKV6 "Finch" block (attention-free, data-dependent decay).
+
+Port of ``repro/models/rwkv6.py``. Per layer:
+  time-mix: token-shift lerps -> r, k, v, g projections; decay
+            w_t = exp(-exp(w0 + tanh(x_w @ A) @ B)) (the low-rank
+            data-dependent decay that defines Finch); WKV recurrence;
+            per-head groupnorm; silu(g) gate; output projection.
+  channel-mix: token-shift lerp; k = relu(x @ Wk)^2; out = (k @ Wv).
+
+The WKV recurrence runs through one of (``impl``, the config's
+``attn_impl``):
+  "ref"     — kernels/wkv6/ref.py, a per-step loop (the reference's "ref")
+  "chunked" — ``wkv6_chunked`` below, the reference's chunked math
+              (plain PyTorch, a loop over chunks, stable exponents)
+  "pallas"  — kernels/wkv6 (``wkv6``): the hand-written CUDA kernel for
+              tensors on the card, its plain version on the CPU. The name
+              is the reference's; unlike the reference, whose model never
+              reaches its TPU kernel (it starts from a zero state), the
+              port runs it on every time-mix, with the carried state.
+
+State (``{"last": [B, 1, D], "s": [B, H, D, D] f32}`` for the time-mix,
+``{"last"}`` for the channel-mix) is O(H·D²) per layer. Unlike the
+reference, which returns new state arrays, the port writes the state's
+tensors **in place**, and under ``commit`` ([B] bool) only the committed
+rows: the serving engine's masked decode wave.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.models.layers import Dense, _param, dense, dtype_of, \
+    init_dense
+
+DECAY_LORA = 64
+#: the per-head groupnorm's epsilon (the reference's, rwkv6.py:161)
+GROUPNORM_EPS = 64e-5
+
+
+class TimeMix(nn.Module):
+    """``tm``: the lerps ``mu_*``, projections ``wr``/``wk``/``wv``/
+    ``wg``/``wo``, the decay's base ``w0`` and low-rank ``w_lora_a``/
+    ``w_lora_b``, the bonus ``u`` [H, hd] and the groupnorm's
+    ``ln_scale``."""
+
+    def __init__(self, mu, dense_, w0, u, ln_scale):
+        super().__init__()
+        for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
+            setattr(self, name, _param(mu[name]))
+        for name in ("wr", "wk", "wv", "wg", "wo", "w_lora_a", "w_lora_b"):
+            setattr(self, name, dense_[name])
+        self.w0 = _param(w0)
+        self.u = _param(u)
+        self.ln_scale = _param(ln_scale)
+
+
+class ChannelMix(nn.Module):
+    """``cm``: the lerp ``mu`` and the projections ``wk``, ``wv``."""
+
+    def __init__(self, mu, wk: Dense, wv: Dense):
+        super().__init__()
+        self.mu = _param(mu)
+        self.wk, self.wv = wk, wv
+
+
+class RWKVBlock(nn.Module):
+    def __init__(self, tm: TimeMix, cm: ChannelMix):
+        super().__init__()
+        self.tm, self.cm = tm, cm
+
+
+def init_rwkv_block(init, cfg) -> RWKVBlock:
+    d = cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    hd = cfg.hd
+    h = d // hd
+    lora = min(DECAY_LORA, d)
+    mu = {n: init.uniform((d,), dt)
+          for n in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g")}
+    dense_ = {n: init_dense(init, d, d, dt) for n in ("wr", "wk", "wv", "wg")}
+    dense_["wo"] = init_dense(init, d, d, dt,
+                              scale=d ** -0.5 / (2 * cfg.n_layers) ** 0.5)
+    dense_["w_lora_a"] = init_dense(init, d, lora, dt)
+    dense_["w_lora_b"] = init_dense(init, lora, d, dt,
+                                    scale=lora ** -0.5 * 0.1)
+    tm = TimeMix(mu, dense_, init.full((d,), -1.0, dt),   # base decay logit
+                 init.normal((h, hd), 0.3, dt), init.full((d,), 1.0, dt))
+    cm = ChannelMix(init.uniform((d,), dt), init_dense(init, d, cfg.d_ff, dt),
+                    init_dense(init, cfg.d_ff, d, dt,
+                               scale=cfg.d_ff ** -0.5))
+    return RWKVBlock(tm, cm)
+
+
+def _token_shift(x, last=None):
+    """Shift right by one along T; ``last`` [B, 1, D] fills position 0."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    return torch.cat([last, x[:, :-1]], dim=1)
+
+
+def _write(dst: torch.Tensor, new: torch.Tensor,
+           commit: torch.Tensor | None) -> None:
+    """``dst`` <- ``new`` in place; with ``commit`` ([B] bool) only the
+    committed rows (dim 0), the others keep their values."""
+    if commit is not None:
+        new = torch.where(commit.view((-1,) + (1,) * (dst.dim() - 1)), new,
+                          dst)
+    dst.copy_(new)
+
+
+def wkv6_chunked(r, k, v, w, u, *, s0=None, chunk: int = 64):
+    """The reference's ``wkv6_chunked_jnp``: the TPU kernel's chunked math,
+    vectorised over [B, H], a Python loop where the reference scans.
+
+    r/k/v/w [B, H, T, D]; u [H, D] -> (o [B,H,T,D] f32, s [B,H,D,D] f32).
+    """
+    b, h, t, d = r.shape
+    L = min(chunk, t)
+    while t % L:
+        L //= 2
+    rf, kf, vf, wf = (z.float() for z in (r, k, v, w))
+    uf = u.float()
+    S = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    tri = (torch.arange(L, device=r.device)[:, None]
+           > torch.arange(L, device=r.device)[None, :])
+    outs = []
+    for c0 in range(0, t, L):
+        rc, kc, vc, wc = (z[:, :, c0:c0 + L] for z in (rf, kf, vf, wf))
+        lw = torch.log(wc)
+        s_incl = torch.cumsum(lw, dim=2)
+        s_excl = s_incl - lw
+        q = rc * torch.exp(s_excl)
+        o = torch.einsum("bhld,bhde->bhle", q, S)
+        # intra: A[t,i] = Σ_d r[t,d] k[i,d] e^{s_excl[t,d]-s_incl[i,d]}
+        expd = torch.exp(s_excl[:, :, :, None, :] - s_incl[:, :, None, :, :])
+        a = (rc[:, :, :, None, :] * kc[:, :, None, :, :] * expd).sum(-1)
+        a = torch.where(tri, a, 0.0)
+        diag = (rc * kc * uf[None, :, None, :]).sum(-1)
+        o = o + torch.einsum("bhti,bhid->bhtd", a, vc) + diag[..., None] * vc
+        tot = s_incl[:, :, -1]                      # [B, H, D]
+        k_dec = kc * torch.exp(tot[:, :, None, :] - s_incl)
+        S = (torch.exp(tot)[:, :, :, None] * S
+             + torch.einsum("bhlk,bhlv->bhkv", k_dec, vc))
+        outs.append(o)
+    return torch.cat(outs, dim=2), S
+
+
+def rwkv_time_mix(p: TimeMix, x, cfg, *, state=None, impl="chunked",
+                  commit=None):
+    """x [B, T, D] (the normed input). ``state``: ``{"last" [B, 1, D],
+    "s" [B, H, D, D]}`` or None; updated in place (``commit`` rows only).
+    Returns out [B, T, D]."""
+    b, t, d = x.shape
+    hd = cfg.hd
+    h = d // hd
+
+    last = None if state is None else state["last"]
+    xs = _token_shift(x, last)
+
+    def mix(mu):
+        return x + (xs - x) * mu
+
+    r = dense(p.wr, mix(p.mu_r))
+    k = dense(p.wk, mix(p.mu_k))
+    v = dense(p.wv, mix(p.mu_v))
+    g = F.silu(dense(p.wg, mix(p.mu_g)))
+    xw = mix(p.mu_w)
+    wlog = p.w0.float() + dense(p.w_lora_b,
+                                torch.tanh(dense(p.w_lora_a, xw))).float()
+    w = torch.exp(-torch.exp(wlog))                 # (0,1) data-dependent
+
+    def split(z):
+        return z.reshape(b, t, h, hd).transpose(1, 2)
+
+    # w is cast to x's dtype before the WKV, as in the reference (:142)
+    rh, kh, vh, wh = split(r), split(k), split(v), split(w.to(x.dtype))
+    u = p.u.float()
+
+    s0 = None if state is None else state["s"]
+    if impl == "pallas":
+        o, s_fin = wkv6(rh, kh, vh, wh, u, s0=s0)
+    elif impl == "ref":
+        o, s_fin = wkv6_ref(rh, kh, vh, wh, u, s0=s0)
+    else:
+        o, s_fin = wkv6_chunked(rh, kh, vh, wh, u, s0=s0)
+
+    # per-head groupnorm (population variance, as jnp.var)
+    mean = o.mean(dim=-1, keepdim=True)
+    var = o.var(dim=-1, keepdim=True, correction=0)
+    o = (o - mean) * torch.rsqrt(var + GROUPNORM_EPS)
+    o = o.transpose(1, 2).reshape(b, t, d)
+    o = o * p.ln_scale.float()
+    o = o.to(x.dtype) * g
+
+    out = dense(p.wo, o)
+    if state is not None:
+        _write(state["last"], x[:, -1:], commit)
+        _write(state["s"], s_fin, commit)
+    return out
+
+
+def rwkv_channel_mix(p: ChannelMix, x, *, state=None, commit=None):
+    """x [B, T, D] (the normed input); ``state``: ``{"last"}`` or None,
+    updated in place. Returns out [B, T, D]."""
+    last = None if state is None else state["last"]
+    xs = _token_shift(x, last)
+    xm = x + (xs - x) * p.mu
+    k = torch.square(F.relu(dense(p.wk, xm)))
+    out = dense(p.wv, k)
+    if state is not None:
+        _write(state["last"], x[:, -1:], commit)
+    return out

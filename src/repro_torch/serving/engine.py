@@ -26,9 +26,12 @@ State handling differs from the reference's copies, not in result: the
 model writes its states in place. A slot's state is read as views of the
 stacked states (``_gather_state``), so a prefill chunk writes straight
 into its slot; a new request's slot is reset with one copy per leaf
-(``_scatter_state``); the decode wave computes every slot but commits only
-the wave's (``decode_step(commit=...)``), so a slot that is mid-prefill
-or idle keeps its ``length``, ``kpos``, ``k``, ``v`` and ``pos``.
+(``_scatter_state``); both walk the state tree leaf by leaf, as the
+reference's do, so a KV ring and an RWKV state alike. The decode wave
+computes every slot but commits only the wave's
+(``decode_step(commit=...)``), so a slot that is mid-prefill or idle
+keeps its ``length``, ``kpos``, ``k`` and ``v`` (or its RWKV ``s`` and
+token-shift ``last``s) and ``pos``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.records import prefix_conflicts, wave_levels
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import map_state, state_leaves
 from repro_torch.obs.profiler import annotate
 from repro_torch.obs.stats import finalize_stats
 from repro_torch.obs.trace import current_tracer
@@ -138,24 +141,23 @@ class ServingEngine:
     # -------------------------------------------------------- execution
     @torch.inference_mode()
     def _scatter_state(self, slot_states: dict, slot: int):
-        """Copy a single-slot state into the batched states (one copy per
-        leaf)."""
+        """Copy a single-slot state into the batched states, leaf by leaf
+        (``pos`` on axis 0, the stacked segment leaves on axis 1)."""
         big = self.states
 
         def put(dst, axis, src):
             dst.select(axis, slot).copy_(src.select(axis, 0))
 
         put(big["pos"], 0, slot_states["pos"])
-        for seg, small in zip(big["segs"], slot_states["segs"]):
-            for dst, src in zip(seg["kv"], small["kv"]):
-                put(dst, 1, src)
+        for dst, src in zip(state_leaves(big["segs"]),
+                            state_leaves(slot_states["segs"])):
+            put(dst, 1, src)
 
     def _gather_state(self, slot: int) -> dict:
         """Views of one slot's state: writes through them land in the
         batched states."""
-        return {"segs": [{"kv": KVCache(*(x.narrow(1, slot, 1)
-                                          for x in seg["kv"]))}
-                         for seg in self.states["segs"]],
+        return {"segs": map_state(lambda x: x.narrow(1, slot, 1),
+                                  self.states["segs"]),
                 "pos": self.states["pos"].narrow(0, slot, 1)}
 
     def _exec_prefill(self, task):

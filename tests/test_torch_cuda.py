@@ -463,3 +463,121 @@ def test_serving_on_card_matches_sequential_through_flash(cuda_device,
     done = sorted(eng.run(), key=lambda r: r.rid)
     assert [r.out_tokens for r in done] == refs
     assert levels_kernel.launches == eng.iterations
+
+
+# ------------------------------------------------------- wkv6 and RWKV6
+WKV6_CASES = [  # b, h, t, d
+    (1, 2, 128, 64), (2, 3, 256, 64), (1, 1, 64, 128), (1, 2, 32, 64),
+    (1, 40, 300, 64),                         # rwkv6-3b's heads, ragged T
+    (2, 3, 37, 48),                           # D not a multiple of 32
+    (2, 3, 37, 64),
+    (8, 4, 1, 64),                            # a decode step
+    (1, 2, 129, 96),
+]
+#: float32 sums of D products in another order than the plain version's
+WKV6_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _wkv6_inputs(b, h, t, d, dtype, device, *, s0, near_one):
+    gen = torch.Generator().manual_seed(b * 1000 + t + d)
+    f = lambda *sh: torch.randn(sh, generator=gen) * 0.4  # noqa: E731
+    r, k, v = f(b, h, t, d), f(b, h, t, d), f(b, h, t, d)
+    logit = f(b, h, t, d) - (5.0 if near_one else 0.0)
+    w = torch.exp(-torch.exp(logit))     # decays near 1, or over (0, 1)
+    u = f(h, d)
+    state = f(b, h, d, d) if s0 else None
+    return ([x.to(device, dtype) for x in (r, k, v, w)] + [u.to(device)],
+            None if state is None else state.to(device))
+
+
+@pytest.mark.parametrize("near_one", [False, True])
+@pytest.mark.parametrize("s0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d", WKV6_CASES)
+def test_wkv6_kernel_matches_plain(cuda_device, dtype, s0, near_one, b, h,
+                                   t, d):
+    """The kernel against the plain recurrence on the same tensors (bf16
+    inputs are read as float32 by both, so one tolerance holds)."""
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    args, state = _wkv6_inputs(b, h, t, d, dtype, cuda_device, s0=s0,
+                               near_one=near_one)
+    n0 = wkv6_kernel.launches
+    o, sf = wkv6(*args, s0=state)
+    want_o, want_s = wkv6_ref(*args, s0=state)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == n0 + 1
+    assert o.dtype == sf.dtype == torch.float32
+    torch.testing.assert_close(o, want_o, **WKV6_TOL)
+    torch.testing.assert_close(sf, want_s, **WKV6_TOL)
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
+
+    def rkvw(t, d, dtype=torch.float32):
+        return [torch.zeros((2, t, d), dtype=dtype, device=cuda_device)] * 4
+
+    u = torch.zeros((2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv6_cuda(*rkvw(4, 129), torch.zeros((2, 129), device=cuda_device),
+                  n_heads=2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wkv6_cuda(*rkvw(4, 16, torch.float16), u, n_heads=2)
+    with pytest.raises(ValueError, match="heads"):
+        wkv6_cuda(*rkvw(4, 16), u, n_heads=3)
+    with pytest.raises(ValueError, match="T >= 1"):
+        wkv6_cuda(*rkvw(0, 16), u, n_heads=2)
+    with pytest.raises(ValueError, match="s0"):
+        wkv6_cuda(*rkvw(4, 16), u, n_heads=2,
+                  s0=torch.zeros((2, 16, 8), device=cuda_device))
+
+
+def test_rwkv_serving_on_card_matches_sequential_through_wkv6(cuda_device,
+                                                              no_tf32):
+    """Reduced rwkv6-3b on the card through the kernel: the engine's
+    tokens equal sequential decoding, and the kernel launches once per
+    layer and time-mix (prefill chunk, decode wave or decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("rwkv6-3b").reduced().replace(attn_impl="pallas")
+    model = build_model(cfg, cuda_device)
+    params = model.init(0, device=cuda_device)
+    rng = __import__("numpy").random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype("int32")
+               for n in (5, 9, 70, 3)]
+    n0 = wkv6_kernel.launches
+    refs = []
+    for p in prompts:
+        st = model.init_states(1, 96)
+        lg, st = model.prefill(params, {"tokens": torch.tensor(
+            p, device=cuda_device)[None]}, st)
+        toks = [int(lg[0].argmax())]
+        for _ in range(5):
+            lg, st = model.decode_step(params, torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device=cuda_device), st)
+            toks.append(int(lg[0].argmax()))
+        refs.append(toks)
+    assert wkv6_kernel.launches - n0 == cfg.n_layers * len(prompts) * 6
+    waves = []
+    real = ServingEngine._exec_decode_wave
+
+    def counted(self, tasks):
+        waves.append(len(tasks))
+        return real(self, tasks)
+
+    eng = ServingEngine(model, params, n_slots=3, max_len=96,
+                        prefill_chunk=16, device=cuda_device)
+    eng._exec_decode_wave = counted.__get__(eng)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    n0 = wkv6_kernel.launches
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    assert wkv6_kernel.launches - n0 == cfg.n_layers * (
+        eng.prefill_tasks + len(waves))
+    assert [r.out_tokens for r in done] == refs

@@ -47,11 +47,12 @@ def test_port_files_found():
             "sir.py", "base.py", "chip_smoke.py", "bridge.py", "trace.py",
             "profiler.py", "provenance.py", "stats.py", "timing.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for kernel in ("conflict", "levels", "axelrod", "sir", "flash"):
+    for kernel in ("conflict", "levels", "axelrod", "sir", "flash", "wkv6"):
         for part in ("ops", "ref", kernel):
             assert f"src/repro_torch/kernels/{kernel}/{part}.py" in rel
     for module in ("models/api.py", "models/attention.py",
                    "models/transformer.py", "models/layers.py",
+                   "models/rwkv6.py",
                    "serving/engine.py", "configs/base.py",
                    "configs/registry.py", "launch/serve.py"):
         assert f"src/repro_torch/{module}" in rel
