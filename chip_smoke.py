@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--tasks N]
     python3 chip_smoke.py --time-overlap [--src DIR] [--tasks N]
+    python3 chip_smoke.py --time-kernels [--src DIR]
 
 Run from the root of a checkout. Phases, each of which exits non-zero on
 failure:
@@ -12,12 +13,22 @@ failure:
      sources, one nvcc each, in parallel) and prints the build seconds;
   3. holds each kernel bit for bit against its plain PyTorch version on
      the card: conflict at W in {1, 37, 128, 129, 1000, 4096}, nr in
-     {1, 21}, nw in {1, 2}, both hazard rules; levels at the same W on
-     random lower-triangular matrices of three densities, with and
-     without a base floor, plus one matrix with entries above the
-     diagonal; the cross-window block at (Wi, Wj) in {(1, 1), (37, 129),
-     (128, 128), (4096, 4096), (1000, 37)} with each side's (nr, nw) in
-     {(1, 1), (21, 2)}, both rules, invalid tails on both sides; the
+     {1, 21}, nw in {1, 2}, both hazard rules, and at footprints wider
+     than one stage of shared memory (the chunked kernel: W in {129,
+     512}, nr in {193, 600, 2358}, and SIS's padded layout at nr =
+     3057); levels at the same W on random
+     lower-triangular matrices of three densities, with and without a
+     base floor, plus one matrix with entries above the diagonal, sparse
+     windows of 8193 and 16384 with and without a base, a pure chain
+     (depth = W) at W = 4096, a sparse window and a chain at W = 57,345
+     (the level vector past shared memory) and serving-shaped windows
+     of 8 — the
+     passes each case took and whether the blocked sweep finished it
+     printed per case; the cross-window block at (Wi, Wj) in {(1, 1),
+     (37, 129), (128, 128), (4096, 4096), (1000, 37)} with each side's
+     (nr, nw) in {(1, 1), (21, 2)}, and at (129, 512) with nr in {193,
+     600, 2358} on one side or both and padded at 3057 on both, both
+     rules, invalid tails; the
      Axelrod wave at W in {1, 37, 128, 4096} x F in {1, 3, 37, 128, 500}
      with masks of three densities, ties forced among the uniforms and
      rows with every feature equal; the SIRS wave at W in {1, 8, 37,
@@ -31,9 +42,10 @@ failure:
      each on inputs of std 0.3 (a flat softmax) and of std 1 (a peaked
      one) — float32 within atol 2e-5 / rtol 1e-4 (atol 1e-4 from
      S = 2048 on), bfloat16 within atol 2e-3 / rtol 1e-2, the max error
-     printed per case; on the peaked inputs the bfloat16 tolerance must
-     reject attention with uniform weights (q = 0), so a kernel that
-     mis-weights its keys fails; and the wkv6 kernel against
+     printed per case; on the
+     peaked inputs the bfloat16 tolerance must reject attention with
+     uniform weights (q = 0), so a kernel that mis-weights its keys
+     fails; and the wkv6 kernel against
      ``wkv6_ref`` in float32 and bfloat16 inputs at the reference's four
      sweep shapes, rwkv6-3b's prefill (B 1, H 40, T 2048, D 64), ragged
      T in {1, 37, 129}, D = 128 and a decode step (B 8, T 1), each from
@@ -85,7 +97,17 @@ failure:
   9. counts the host syncs per window of each path over 16 windows
      (``torch.cuda.set_sync_debug_mode("warn")``), tracing off; more
      than 19 per 16 windows on the overlap path fails;
- 10. the LM serving path at smollm-360m's full width (32 layers,
+ 10. wide footprints and big windows: SIS on a graph built in numpy
+     from the seed (preferential attachment over 10^5 nodes, m = 3, with
+     hubs of 2400, 1500 and 800 random neighbours planted: a task reads
+     up to 1 + max degree ids) through ``wavefront`` and
+     ``wavefront_overlap`` at W = 4096 for 8 windows — launches counted,
+     the final state against the oracle and a CPU run of the port
+     (state and stats), ms per window, and the chunked conflict kernels
+     on a real window and boundary, each bit for bit against its plain
+     version under both rules, and their ms; then voter at W = 16384 for two windows
+     through both engines against the oracle;
+ 11. the LM serving path at smollm-360m's full width (32 layers,
      d_model 960, vocab 49152), random weights from the seed: 16 requests
      with prompt lengths 64-1536 drawn from the seed, 64 new tokens each,
      8 slots, max_len 2048, prefill chunks of 128. Checked (float32
@@ -116,14 +138,16 @@ failure:
      once per iteration; the one-shot prefill at T = 2048 through
      "pallas" against "chunked" — last-token logits and layer 0's state
      within RWKV_PREFILL_TOL. Timed (bf16): as for smollm;
- 11. times each kernel at W = 4096 on real windows (CUDA events, median
-     of 25) beside its plain version and its bound; the summary line
-     holds SIS's conflict and levels times (the widest footprint of the
-     graph models), and the wave kernels at F = 500 and s = 1000; flash
-     at smollm-360m's prefill shape in bf16 beside its plain version and
-     ``scaled_dot_product_attention`` (the library yardstick, which the
-     port never calls), bound by max(bytes / 3.35 TB/s, causal flops /
-     989 TFLOP/s); wkv6 at rwkv6-3b's prefill shape (B 1, H 40, T 2048,
+ 12. times each kernel at W = 4096 on real windows (CUDA events, median
+     of 25) beside its plain version and its bound, the levels kernel
+     with its passes, and on random windows of density 0.3; the summary
+     line holds SIS's conflict and levels times (the widest footprint of
+     the Watts–Strogatz graph), and the wave kernels at F = 500 and
+     s = 1000; flash at smollm-360m's prefill shape in bf16 beside its
+     plain version and ``scaled_dot_product_attention`` (the library
+     yardstick, which the port never calls), bound by max(bytes /
+     3.35 TB/s, causal flops / 989 TFLOP/s), and in float32 beside the
+     same two (printed, not in the summary line); wkv6 at rwkv6-3b's prefill shape (B 1, H 40, T 2048,
      D 64, bf16, s0 = 0) beside its plain version (no library call
      computes the recurrence), bound by max(bytes / 3.35 TB/s, flops /
      67 TFLOP/s, the float32 CUDA-core rate). The kernels line lists
@@ -133,6 +157,16 @@ The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits non-zero and
 prints no result.
+
+``--time-kernels`` runs none of the above either: it prints the device ms
+(CUDA events, median of 25) of the conflict and block kernels on real
+voter and SIS windows and boundaries (Watts–Strogatz, n = 10^6, W = 4096),
+of the levels kernel on those windows, on a random window of density 0.3
+and on a chain at W = 4096, and on serving-shaped windows of 8 (no
+conflict, a chain; also the host µs per call, launches back to back),
+and of the flash kernel at smollm-360m's prefill in bf16, with the port
+package under ``--src`` — so that the kernels of two trees can be
+compared in one call, each tree in its own process.
 
 ``--time-overlap`` runs none of the above: it prints the overlap path's
 wall ms per window for Axelrod (F = 3) and SIRS (s = 50) at n = 10^6,
@@ -166,6 +200,29 @@ PARITY_WINDOWS = (1, 37, 128, 129, 1000, 4096)
 BLOCK_SHAPES = ((1, 1), (37, 129), (128, 128), (4096, 4096), (1000, 37))
 SLOTS = ((1, 1), (21, 2))
 LEVEL_DENSITIES = (0.001, 0.02, 0.3)
+#: footprints wider than one stage of shared memory (nr + nw > 192): the
+#: chunked conflict kernels; 2358 = 1 + the max degree of a Barabási–Albert
+#: graph at n = 10^6 (BENCH_topology.json)
+WIDE_READS = (193, 600, 2358)
+WIDE_WINDOWS = (129, 512)
+#: SIS's layout at the hub-SIS phase's width (1 + max degree 3,056): every
+#: row padded with -1 past a short used prefix (up to PADDED_PREFIX slots),
+#: a few hub rows using every slot, so the chunked kernels' per-pass used
+#: extent differs from tile to tile and mostly stops the compares early
+PADDED_READS = 3057
+PADDED_PREFIX = 12
+PADDED_HUBS = 0.02
+#: levels beyond the old 8192 limit: (W, density) of sparse windows
+BIG_LEVEL_WINDOWS = ((8193, 1e-4), (8193, 1e-3), (16384, 1e-4))
+#: a window whose level vector does not fit a CTA's shared memory (the
+#: kernel keeps it in L2 past 56,320)
+LEVELS_L2_WINDOW = 57_345
+#: the hub-graph SIS phase: a preferential-attachment graph at n = 10^5
+#: (m = 3 edges per arrival) with hubs planted up to HUB_DEGREES, so a
+#: task reads up to 1 + max degree ids (the chunked conflict kernels)
+HUB_NODES = 100_000
+HUB_M = 3
+HUB_DEGREES = (2400, 1500, 800)
 AXELROD_WINDOWS = (1, 37, 128, 4096)
 AXELROD_FEATURES = (1, 3, 37, 128, 500)
 MASK_DENSITIES = (0.2, 0.7, 1.0)
@@ -203,52 +260,79 @@ def log(msg: str) -> None:
 
 
 # ------------------------------------------------------------- parity
-def random_footprint(torch, gen, w, nr, nw, device):
-    ids = max(4, w)
+def random_footprint(torch, gen, w, nr, nw, device, ids=None, pad=False):
+    """Ids in [0, ids), 20 % of the slots unused (-1), an invalid tail.
+    pad: SIS's layout besides — each row's reads unused past a prefix of
+    1..PADDED_PREFIX slots, except PADDED_HUBS of the rows, which use every
+    slot."""
+    ids = ids or max(4, w)
     reads = torch.randint(0, ids, (w, nr), generator=gen, dtype=torch.int32)
     writes = torch.randint(0, ids, (w, nw), generator=gen, dtype=torch.int32)
     reads[torch.rand((w, nr), generator=gen) < 0.2] = -1
     writes[torch.rand((w, nw), generator=gen) < 0.2] = -1
+    if pad:
+        used = torch.randint(1, PADDED_PREFIX + 1, (w, 1), generator=gen)
+        used[torch.rand((w, 1), generator=gen) < PADDED_HUBS] = nr
+        reads[torch.arange(nr)[None, :] >= used] = -1
     valid = torch.arange(w) < w - w // 7  # an invalid tail
     return reads.to(device), writes.to(device), valid.to(device)
 
 
 def check_conflict_parity(torch, conflict_matrix) -> int:
+    """Narrow footprints at PARITY_WINDOWS, then wide ones (the chunked
+    kernel) with ids over 8·nr·nw values, so that some cells conflict and
+    some do not, then SIS's padded layout at PADDED_READS slots."""
     gen = torch.Generator().manual_seed(1)
     worst, cases = 0, 0
-    for w in PARITY_WINDOWS:
-        for nr in (1, 21):
-            for nw in (1, 2):
-                for strict in (True, False):
-                    reads, writes, valid = random_footprint(
-                        torch, gen, w, nr, nw, "cuda")
-                    got = conflict_matrix(reads, writes, valid,
-                                          strict=strict, backend="cuda")
-                    want = conflict_matrix(reads, writes, valid,
-                                           strict=strict, backend="torch")
-                    torch.cuda.synchronize()
-                    err = int((got.int() - want.int()).abs().max())
-                    worst = max(worst, err)
-                    cases += 1
-                    if err:
-                        fail(f"conflict kernel != plain version at W={w} "
-                             f"nr={nr} nw={nw} strict={strict}")
-    log(f"parity conflict: {cases} cases bit-exact")
+    shapes = ([(w, nr, nw, None, False) for w in PARITY_WINDOWS
+               for nr in (1, 21) for nw in (1, 2)]
+              + [(w, nr, nw, 8 * nr * nw, False) for w in WIDE_WINDOWS
+                 for nr in WIDE_READS for nw in (1, 2)]
+              + [(w, PADDED_READS, nw, 4 * w, True) for w in WIDE_WINDOWS
+                 for nw in (1, 2)])
+    for w, nr, nw, ids, pad in shapes:
+        for strict in (True, False):
+            reads, writes, valid = random_footprint(torch, gen, w, nr, nw,
+                                                    "cuda", ids=ids, pad=pad)
+            got = conflict_matrix(reads, writes, valid, strict=strict,
+                                  backend="cuda")
+            want = conflict_matrix(reads, writes, valid, strict=strict,
+                                   backend="torch")
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            worst = max(worst, err)
+            cases += 1
+            if err:
+                fail(f"conflict kernel != plain version at W={w} nr={nr} "
+                     f"nw={nw} strict={strict} padded={pad}")
+    log(f"parity conflict: {cases} cases bit-exact (nr up to "
+        f"{PADDED_READS}, padded as SIS pads)")
     return worst
 
 
 def check_levels_parity(torch, wave_levels) -> int:
+    """The levels kernel against its plain version: random lower-triangular
+    windows at PARITY_WINDOWS of three densities with and without a base,
+    one matrix with entries above the diagonal, windows beyond 8192
+    (BIG_LEVEL_WINDOWS, with a base and an invalid tail), a pure chain
+    (depth = W) at W = 4096 and serving-shaped windows of 8. Prints the
+    passes each case took and whether the blocked sweep finished it."""
+    from repro_torch.kernels.levels import levels as levels_kernel
+
     gen = torch.Generator().manual_seed(2)
-    worst, cases = 0, 0
+    worst, cases, runs = 0, 0, []
 
     def one(conf, valid, base, what):
         nonlocal worst, cases
         got = wave_levels(conf, valid, base=base, backend="cuda")
+        passes, swept = levels_kernel.last_run()
         want = wave_levels(conf, valid, base=base, backend="torch")
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         worst = max(worst, err)
         cases += 1
+        runs.append({"case": what, "passes": passes, "swept": swept,
+                     "levels": int(want.max()) + 1})
         if err:
             fail(f"levels kernel != plain version: {what}")
 
@@ -265,36 +349,89 @@ def check_levels_parity(torch, wave_levels) -> int:
     conf = (torch.rand((w, w), generator=gen) < 0.05).cuda()  # not triangular
     one(conf, torch.ones(w, dtype=torch.bool, device="cuda"), None,
         "entries above the diagonal")
-    log(f"parity levels: {cases} cases bit-exact")
+    gen_card = torch.Generator(device="cuda").manual_seed(2)
+    for w, density in BIG_LEVEL_WINDOWS:  # the level vector past 32 KB
+        valid = (torch.arange(w) < w - w // 7).cuda()
+        conf = (torch.rand((w, w), generator=gen_card, device="cuda")
+                < density).tril(diagonal=-1)
+        base = torch.randint(0, 5, (w,), generator=gen,
+                             dtype=torch.int32).cuda()
+        one(conf, valid, None, f"W={w} density={density}")
+        one(conf, valid, base, f"W={w} density={density} base")
+    w = 4096
+    chain = torch.zeros((w, w), dtype=torch.bool, device="cuda")
+    idx = torch.arange(1, w, device="cuda")
+    chain[idx, idx - 1] = True
+    one(chain, torch.ones(w, dtype=torch.bool, device="cuda"), None,
+        f"chain W={w}")
+    # past the levels that fit a CTA's shared memory (the vector in L2):
+    # a sparse window (the relaxation) and a chain (the sweep)
+    w = LEVELS_L2_WINDOW
+    valid = torch.ones(w, dtype=torch.bool, device="cuda")
+    conf = torch.zeros((w, w), dtype=torch.bool, device="cuda")
+    rows = torch.randint(1, w, (w // 2,), generator=gen_card, device="cuda")
+    cols = (torch.rand(w // 2, generator=gen_card, device="cuda")
+            * rows).long()
+    conf[rows, cols] = True
+    one(conf, valid, None, f"W={w} sparse")
+    conf.zero_()
+    idx = torch.arange(1, w, device="cuda")
+    conf[idx, idx - 1] = True
+    one(conf, valid, None, f"chain W={w}")
+    del conf
+    # serving: 8 slots, one task each (no conflict), and chains of one
+    # request's tasks, with a floor
+    serving = torch.zeros((8, 8), dtype=torch.bool)
+    one(serving.cuda(), torch.ones(8, dtype=torch.bool, device="cuda"),
+        None, "serving W=8")
+    for i, j in ((1, 0), (2, 1), (5, 3), (7, 5), (7, 6)):
+        serving[i, j] = True
+    one(serving.cuda(), torch.tensor([1, 1, 1, 1, 1, 1, 0, 1],
+                                     dtype=torch.bool, device="cuda"),
+        torch.tensor([0, 0, 2, 0, 1, 0, 0, 0], dtype=torch.int32,
+                     device="cuda"), "serving W=8 chains base")
+    for r in runs:
+        log("levels passes: " + json.dumps(r))
+    log(f"parity levels: {cases} cases bit-exact (W up to "
+        f"{max(w for w, _ in BIG_LEVEL_WINDOWS)})")
     return worst
 
 
 def check_block_parity(torch, conflict_block) -> int:
+    """Narrow footprints at BLOCK_SHAPES with each side's slots in SLOTS,
+    then wide ones (the chunked kernel) on one side or both at
+    WIDE_WINDOWS, ids over 16·nr values, then SIS's padded layout at
+    PADDED_READS slots on both sides; ids drawn over one range, so the two
+    sides collide."""
     gen = torch.Generator().manual_seed(3)
     worst, cases = 0, 0
-    for wi, wj in BLOCK_SHAPES:
-        for nr_i, nw_i in SLOTS:
-            for nr_j, nw_j in SLOTS:
-                for strict in (True, False):
-                    # ids drawn over one range, so the two sides collide
-                    ri, wri, vi = random_footprint(torch, gen, wi, nr_i,
-                                                   nw_i, "cuda")
-                    rj, wrj, vj = random_footprint(torch, gen, wj, nr_j,
-                                                   nw_j, "cuda")
-                    args = (ri, wri, rj, wrj, vi, vj)
-                    got = conflict_block(*args, strict=strict,
-                                         backend="cuda")
-                    want = conflict_block(*args, strict=strict,
-                                          backend="torch")
-                    torch.cuda.synchronize()
-                    err = int((got.int() - want.int()).abs().max())
-                    worst = max(worst, err)
-                    cases += 1
-                    if err:
-                        fail(f"conflict_block kernel != plain version at "
-                             f"Wi={wi} Wj={wj} (nr, nw)_i=({nr_i}, {nw_i}) "
-                             f"(nr, nw)_j=({nr_j}, {nw_j}) strict={strict}")
-    log(f"parity conflict_block: {cases} cases bit-exact")
+    pr = PADDED_READS
+    shapes = ([(wi, wj, si, sj, None, False) for wi, wj in BLOCK_SHAPES
+               for si in SLOTS for sj in SLOTS]
+              + [(*WIDE_WINDOWS, si, sj, 16 * nr, False) for nr in WIDE_READS
+                 for si, sj in (((nr, 1), (nr, 2)), ((nr, 2), (1, 1)),
+                                ((21, 2), (nr, 1)))]
+              + [(*WIDE_WINDOWS, si, sj, 4 * WIDE_WINDOWS[1], True)
+                 for si, sj in (((pr, 1), (pr, 1)), ((pr, 2), (pr, 1)))])
+    for wi, wj, (nr_i, nw_i), (nr_j, nw_j), ids, pad in shapes:
+        for strict in (True, False):
+            ri, wri, vi = random_footprint(torch, gen, wi, nr_i, nw_i, "cuda",
+                                           ids=ids, pad=pad)
+            rj, wrj, vj = random_footprint(torch, gen, wj, nr_j, nw_j, "cuda",
+                                           ids=ids, pad=pad)
+            args = (ri, wri, rj, wrj, vi, vj)
+            got = conflict_block(*args, strict=strict, backend="cuda")
+            want = conflict_block(*args, strict=strict, backend="torch")
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            worst = max(worst, err)
+            cases += 1
+            if err:
+                fail(f"conflict_block kernel != plain version at Wi={wi} "
+                     f"Wj={wj} (nr, nw)_i=({nr_i}, {nw_i}) (nr, nw)_j="
+                     f"({nr_j}, {nw_j}) strict={strict} padded={pad}")
+    log(f"parity conflict_block: {cases} cases bit-exact (nr up to "
+        f"{PADDED_READS}, padded as SIS pads)")
     return worst
 
 
@@ -952,6 +1089,70 @@ def time_overlap(torch, total_tasks):
     log("overlap wall per window: " + json.dumps(row))
 
 
+def time_kernels(torch):
+    """Device ms of the conflict, block, levels and flash kernels on
+    inputs made from the seed, with whichever port package is first on
+    sys.path (see --time-kernels)."""
+    import repro_torch
+    from repro_torch.kernels.conflict.ops import (
+        conflict_block,
+        conflict_matrix,
+    )
+    from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.levels.ops import wave_levels
+    from repro_torch.mabs import SISModel, VoterModel
+    from repro_torch.topology import watts_strogatz
+    from repro_torch.utils import prng
+    from repro_torch.utils.timing import cuda_event_ms
+
+    row = {"package": str(Path(repro_torch.__file__).parent.parent)}
+    topo = watts_strogatz(N_NODES, DEGREE, REWIRE, prng.key(SEED))
+    valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
+    for name, model in (("voter", VoterModel(topo)), ("sis", SISModel(topo))):
+        key = prng.key(SEED)
+        r0, w0 = (x.contiguous() for x in
+                  model.task_footprint(model.create_tasks(key, 0, WINDOW)))
+        r1, w1 = (x.contiguous() for x in model.task_footprint(
+            model.create_tasks(key, WINDOW, WINDOW)))
+        conf = conflict_matrix(r0, w0, valid)
+        row[f"conflict_{name}_ms"] = cuda_event_ms(
+            lambda: conflict_matrix(r0, w0, valid, backend="cuda"))
+        row[f"block_{name}_ms"] = cuda_event_ms(lambda: conflict_block(
+            r1, w1, r0, w0, valid, valid, backend="cuda"))
+        row[f"levels_{name}_ms"] = cuda_event_ms(
+            lambda: wave_levels(conf, valid, backend="cuda"))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    dense = (torch.rand((WINDOW, WINDOW), generator=gen, device=DEVICE)
+             < 0.3).tril(diagonal=-1)
+    row["levels_density_0.3_ms"] = cuda_event_ms(
+        lambda: wave_levels(dense, valid, backend="cuda"))
+    chain = torch.zeros((WINDOW, WINDOW), dtype=torch.bool, device=DEVICE)
+    idx = torch.arange(1, WINDOW, device=DEVICE)
+    chain[idx, idx - 1] = True
+    row["levels_chain_ms"] = cuda_event_ms(
+        lambda: wave_levels(chain, valid, backend="cuda"))
+    del dense, chain
+    v8 = torch.ones(8, dtype=torch.bool, device=DEVICE)
+    for what, c8 in (("none", torch.zeros((8, 8), dtype=torch.bool)),
+                     ("chain", torch.ones((8, 8), dtype=torch.bool)
+                      .tril(diagonal=-1))):
+        c8 = c8.to(DEVICE)
+        row[f"levels_w8_{what}_ms"] = cuda_event_ms(
+            lambda: wave_levels(c8, v8, backend="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            wave_levels(c8, v8, backend="cuda")
+        torch.cuda.synchronize()
+        row[f"levels_w8_{what}_host_us"] = (time.perf_counter() - t0) / 500 \
+            * 1e6
+    q, k, v = flash_inputs(torch, 1, 15, 5, 2048, 2048, 64, torch.bfloat16,
+                           99)
+    row["flash_bf16_ms"] = cuda_event_ms(
+        lambda: flash_attention(q, k, v, causal=True))
+    log("kernel times: " + json.dumps(row))
+
+
 def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
     """Host syncs per window of one path over n_windows windows, as
     torch.cuda's sync debug mode reports them. The known one per window
@@ -982,6 +1183,158 @@ def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
     return per_window
 
 
+# ----------------------------------------------------- wide footprints
+def hub_graph_edges():
+    """[E, 2] int64 edges of a graph built in numpy from the seed:
+    preferential attachment over HUB_NODES nodes (each arrival links to
+    HUB_M distinct nodes drawn from the repeated-nodes list, as in the
+    Barabási–Albert model), plus hubs planted at nodes 0, 1, ... with
+    HUB_DEGREES random neighbours each."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    targets, repeated, edges = list(range(HUB_M)), [], []
+    for v in range(HUB_M, HUB_NODES):
+        edges += [(v, t) for t in targets]
+        repeated += targets + [v] * HUB_M
+        chosen = set()
+        while len(chosen) < HUB_M:
+            chosen.add(repeated[rng.randint(len(repeated))])
+        targets = sorted(chosen)
+    for hub, degree in enumerate(HUB_DEGREES):
+        edges += [(hub, int(u)) for u in
+                  rng.choice(HUB_NODES, degree, replace=False)]
+    return np.asarray(edges, dtype=np.int64)
+
+
+def drive_hub_sis(torch):
+    """SIS on the hub graph (a task reads 1 + max degree ids, far past one
+    stage of the conflict kernels' shared memory) through wavefront and
+    wavefront_overlap at W = 4096 for CHECK_WINDOWS windows: launches
+    counted, the final state against the oracle and a CPU run of the port
+    (state and stats). Then the chunked conflict kernels on a real window
+    and boundary at that width: each equal to its plain version bit for
+    bit under both hazard rules, and timed. Returns the launches."""
+    from repro_torch.core import ProtocolConfig, run_engine, run_oracle
+    from repro_torch.kernels.conflict import conflict as conflict_kernel
+    from repro_torch.kernels.conflict.ops import (
+        conflict_block,
+        conflict_matrix,
+    )
+    from repro_torch.kernels.levels import levels as levels_kernel
+    from repro_torch.mabs import SISModel
+    from repro_torch.topology import from_edges
+    from repro_torch.utils import prng
+    from repro_torch.utils.timing import cuda_event_ms
+
+    t0 = time.perf_counter()
+    edges = hub_graph_edges()
+    topo = from_edges(HUB_NODES, edges, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = SISModel(topo)
+    cpu_model = SISModel(topo.to("cpu"))
+    state0 = model.init_state(prng.key(SEED + 1))
+    cfg = ProtocolConfig(window=WINDOW)
+    total = CHECK_WINDOWS * WINDOW
+    oracle = run_oracle(model, state0, total, seed=SEED, config=cfg)
+    launches = {"conflict": 0, "levels": 0, "conflict_block": 0}
+    row = {"n_nodes": HUB_NODES, "edges": len(edges),
+           "max_degree": topo.max_degree, "read_slots": 1 + topo.max_degree,
+           "window": WINDOW, "tasks": total, "build_seconds": build_s}
+    for engine in ("wavefront", "wavefront_overlap"):
+        conflict_kernel.launches = conflict_kernel.block_launches = 0
+        levels_kernel.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, stats = run_engine(model, state0, total, seed=SEED, config=cfg,
+                                engine=engine)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        nw = stats["n_windows"]
+        n = {"conflict": conflict_kernel.launches,
+             "levels": levels_kernel.launches,
+             "conflict_block": conflict_kernel.block_launches}
+        want = {"conflict": nw, "levels": nw,
+                "conflict_block": nw - 1 if engine != "wavefront" else 0}
+        if n != want:
+            fail(f"hub SIS {engine}: launches {n}, expected {want}")
+        for k, v in n.items():
+            launches[k] += v
+        if not states_equal(out, oracle):
+            fail(f"hub SIS {engine} != sequential oracle on {total} tasks")
+        cpu_out, cpu_stats = run_engine(
+            cpu_model, {k: v.cpu() for k, v in state0.items()}, total,
+            seed=SEED, config=cfg, engine=engine, device="cpu")
+        if cpu_stats != stats or not states_equal(cpu_out, out):
+            fail(f"hub SIS {engine}: GPU run != CPU run of the port: {stats}"
+                 f" vs {cpu_stats}")
+        row[engine] = {"ms_per_window": secs / nw * 1e3,
+                       "total_waves": stats["total_waves"],
+                       "launches": n}
+    # the chunked kernels on a real window and boundary at that width
+    key = prng.key(SEED)
+    reads, writes = (x.contiguous() for x in
+                     model.task_footprint(model.create_tasks(key, 0, WINDOW)))
+    reads_n, writes_n = (x.contiguous() for x in model.task_footprint(
+        model.create_tasks(key, WINDOW, WINDOW)))
+    valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
+    for strict in (True, False):
+        pairs = {
+            "conflict": [conflict_matrix(reads, writes, valid, strict=strict,
+                                         backend=b) for b in ("cuda", "torch")],
+            "conflict_block": [conflict_block(
+                reads_n, writes_n, reads, writes, valid, valid, strict=strict,
+                backend=b) for b in ("cuda", "torch")]}
+        for kname, (got, want) in pairs.items():
+            if not torch.equal(got, want):
+                fail(f"hub SIS: {kname} kernel != plain version on a real "
+                     f"window (W={WINDOW}, nr={reads.shape[1]}, "
+                     f"strict={strict}): {int((got != want).sum())} cells")
+        row[f"parity_cells_hit_strict_{strict}"] = {
+            k: int(v[1].sum()) for k, v in pairs.items()}
+        del pairs
+    row["conflict_ms"] = cuda_event_ms(lambda: conflict_matrix(
+        reads, writes, valid, backend="cuda"))
+    row["block_ms"] = cuda_event_ms(lambda: conflict_block(
+        reads_n, writes_n, reads, writes, valid, valid, backend="cuda"))
+    row["conflict_density"] = float(conflict_matrix(reads, writes, valid)
+                                    .sum()) / (WINDOW * (WINDOW - 1) / 2)
+    row["used_read_slots_mean"] = float((reads >= 0).sum()) / WINDOW
+    log("hub SIS: " + json.dumps(row))
+    del topo, model, cpu_model, oracle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_big_window(torch, models):
+    """Windows past the old 8192 limit: voter through wavefront and
+    wavefront_overlap at W = 16384 for two windows, against the oracle;
+    the levels kernel launched once per window."""
+    from repro_torch.core import ProtocolConfig, run_engine, run_oracle
+    from repro_torch.kernels.levels import levels as levels_kernel
+    from repro_torch.utils import prng
+
+    w = 16384
+    model = models["voter"]
+    state0 = model.init_state(prng.key(SEED + 1))
+    cfg = ProtocolConfig(window=w)
+    oracle = run_oracle(model, state0, 2 * w, seed=SEED, config=cfg)
+    row = {}
+    for engine in ("wavefront", "wavefront_overlap"):
+        levels_kernel.launches = 0
+        out, stats = run_engine(model, state0, 2 * w, seed=SEED, config=cfg,
+                                engine=engine)
+        if levels_kernel.launches != stats["n_windows"]:
+            fail(f"W={w} {engine}: {levels_kernel.launches} levels launches "
+                 f"for {stats['n_windows']} windows")
+        if not states_equal(out, oracle):
+            fail(f"W={w} {engine} != sequential oracle on {2 * w} tasks")
+        row[engine] = {"total_waves": stats["total_waves"],
+                       "levels_passes": levels_kernel.last_run()[0]}
+    log(f"window {w}: equals the oracle " + json.dumps(row))
+
+
 # ----------------------------------------------------------- kernel times
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                ops, ops_per_s=CUDA_CORE_OPS_PER_S):
@@ -1001,11 +1354,24 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         conflict_block,
         conflict_matrix,
     )
+    from repro_torch.kernels.levels import levels as levels_kernel
     from repro_torch.kernels.levels.ops import wave_levels
     from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
 
     rows = {}
+    # the levels kernel on random windows of density 0.3 (thousands of
+    # levels deep: the blocked sweep finishes them)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
+    dense = (torch.rand((WINDOW, WINDOW), generator=gen, device=DEVICE)
+             < 0.3).tril(diagonal=-1)
+    d_ms = cuda_event_ms(lambda: wave_levels(dense, valid, backend="cuda"))
+    passes, swept = levels_kernel.last_run()
+    log(f"kernel times levels density 0.3 W={WINDOW}: " + json.dumps(
+        {"levels_ms": d_ms, "passes": passes, "swept": swept,
+         "levels": int(wave_levels(dense, valid).max()) + 1}))
+    del dense
     for name, model in models.items():
         recipes = model.create_tasks(prng.key(SEED), 0, WINDOW)
         reads, writes = model.task_footprint(recipes)
@@ -1028,6 +1394,7 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
 
         l_ms = cuda_event_ms(lambda: wave_levels(conf, valid,
                                                     backend="cuda"))
+        l_passes, l_swept = levels_kernel.last_run()
         l_plain = cuda_event_ms(lambda: wave_levels(
             conf, valid, backend="torch"), reps=3)
         l_bytes = WINDOW * (WINDOW - 1) // 2 + WINDOW + 4 * WINDOW
@@ -1038,7 +1405,8 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
             "conflict_density": float(conf.sum())
             / (WINDOW * (WINDOW - 1) / 2),
             "levels_ms": l_ms, "levels_plain_ms": l_plain,
-            "levels_bytes": l_bytes,
+            "levels_bytes": l_bytes, "levels_passes": l_passes,
+            "levels_swept": l_swept,
             "waves": int(wave_levels(conf, valid).max()) + 1,
         }
         log(f"kernel times {name} W={WINDOW}: " + json.dumps(info))
@@ -1831,6 +2199,15 @@ def flash_row(torch, launches, err):
                           reps=5)
     lib = cuda_event_ms(lambda: scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
+    # the float32 kernel (CUDA cores) at the same shape
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    f32 = {"ms": cuda_event_ms(lambda: flash_attention(q32, k32, v32,
+                                                       causal=True)),
+           "plain_ms": cuda_event_ms(lambda: attention_ref(
+               q32, k32, v32, causal=True), reps=5),
+           "library_ms": cuda_event_ms(lambda: scaled_dot_product_attention(
+               q32, k32, v32, is_causal=True, enable_gqa=True))}
+    del q32, k32, v32
     nbytes = 2 * (2 * b * h * t * d + 2 * b * hkv * s * d)
     flops = 4 * b * h * t * s * d / 2          # causal: half the pairs
     row = kernel_row("flash_attention", "src/repro_torch/csrc/flash.cu",
@@ -1839,9 +2216,10 @@ def flash_row(torch, launches, err):
                      ops_per_s=BF16_TENSOR_OPS_PER_S)
     row["library_ms"] = lib
     log("kernel times flash smollm prefill bf16: " + json.dumps(
-        {"ms": ms, "plain_ms": plain, "library_ms": lib, "bytes": nbytes,
-         "flops": flops, "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"]}))
+        {"ms": ms, "plain_ms": plain,
+         "library_ms": lib, "bytes": nbytes, "flops": flops,
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}))
+    log("kernel times flash smollm prefill float32: " + json.dumps(f32))
     return row
 
 
@@ -1917,12 +2295,15 @@ def main(argv=None) -> None:
                         help="tasks per model on both paths "
                              f"(default 2^22 = {TOTAL_TASKS}; with "
                              "--time-overlap 2^20)")
+    parser.add_argument("--time-kernels", action="store_true",
+                        help="only time the conflict, block, levels and "
+                             "flash kernels (device ms)")
     parser.add_argument("--time-overlap", action="store_true",
                         help="only time the overlap path of Axelrod and "
                              "SIRS (wall ms per window)")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory holding the repro_torch package "
-                             "(--time-overlap)")
+                             "(--time-overlap, --time-kernels)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1935,6 +2316,9 @@ def main(argv=None) -> None:
     sys.path.insert(0, str(args.src))
     if args.time_overlap:
         time_overlap(torch, args.tasks or 1 << 20)
+        return
+    if args.time_kernels:
+        time_kernels(torch)
         return
     tasks = args.tasks or TOTAL_TASKS
     from repro_torch.kernels import _build
@@ -2009,15 +2393,21 @@ def main(argv=None) -> None:
              f"more than {OVERLAP_SYNCS_MAX}")
     log(f"sync count: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    hub_launches = drive_hub_sis(torch)
+    drive_big_window(torch, models)
+    log(f"wide footprints and big windows: {time.perf_counter() - t0:.1f} s")
+
     lm_launches, rwkv_launches = drive_lm(torch)
 
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)
         + "; task-size phase: " + json.dumps(wide_launches)
+        + "; hub SIS: " + json.dumps(hub_launches)
         + "; serving path: " + json.dumps(lm_launches)
         + "; rwkv serving path: " + json.dumps(rwkv_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
-             for k, v in ov_launches.items()}
+             + hub_launches.get(k, 0) for k, v in ov_launches.items()}
     total["levels"] += (lm_launches["wave_levels"]
                         + rwkv_launches["wave_levels"])
     rows = kernel_rows(torch, models, ov_models, total, errs)

@@ -1,7 +1,8 @@
 """Bindings of the CUDA conflict kernels (``csrc/conflict.cu``).
 
 Ports of ``repro/kernels/conflict/conflict.py``, one 32×32 CTA per output
-tile (see the source's note for the design and what bounds it):
+tile, at any footprint width (see the source's note for the design and
+what bounds it):
 
   conflict_matrix_cuda  ``conflict_matrix_pallas``: the [W, W] strictly-
                         lower-triangular prefix-conflict matrix of one
@@ -11,7 +12,10 @@ tile (see the source's note for the design and what bounds it):
                         window's columns, validity mask only); counted by
                         ``block_launches``
 
-Each counter changes only where its wrapper launches its kernel.
+A footprint whose slots fit one stage of shared memory takes the narrow
+kernel, which stages every slot at once; a wider one takes the chunked
+kernel, ``staging_chunks`` slots a pass. Each counter changes only where
+its wrapper launches its kernel.
 """
 from __future__ import annotations
 
@@ -26,27 +30,34 @@ launches = 0
 #: number of kernel launches made through ``conflict_block_cuda``
 block_launches = 0
 
-_SMEM_LIMIT = 48 * 1024
+#: id slots a tile stages per side and pass: 48 KB of shared memory hold
+#: two sides of 32 rows x 192 slots of 4 bytes (csrc/conflict.cu checks it)
+STAGE_SLOTS = 192
+
 _lib = None
+
+
+def staging_chunks(nr_i: int, nw_i: int, nr_j: int,
+                   nw_j: int) -> tuple[int, int]:
+    """(kr, kw): the read and write slots of each side that one pass of
+    the chunked kernel stages, or (0, 0) when both sides' whole footprints
+    fit one stage (the narrow kernel)."""
+    if nr_i + nw_i + nr_j + nw_j <= 2 * STAGE_SLOTS:
+        return 0, 0
+    kw = min(max(nw_i, nw_j), STAGE_SLOTS // 2)
+    return min(max(nr_i, nr_j), STAGE_SLOTS - kw), kw
 
 
 def _load():
     global _lib
     if _lib is None:
         lib = _build.load("conflict")
-        lib.conflict_matrix_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+        lib.conflict_matrix_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.conflict_matrix_launch.restype = ctypes.c_int
-        lib.conflict_matrix_smem_bytes.argtypes = [ctypes.c_int,
-                                                   ctypes.c_int]
-        lib.conflict_matrix_smem_bytes.restype = ctypes.c_int
         lib.conflict_block_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.conflict_block_launch.restype = ctypes.c_int
-        lib.conflict_block_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.conflict_block_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -71,15 +82,13 @@ def conflict_matrix_cuda(read_ids: torch.Tensor, write_ids: torch.Tensor,
     check_tensor("write_ids", write_ids, torch.int32, (w, nw), dev)
     check_tensor("valid", valid, torch.bool, (w,), dev)
     lib = _load()
-    if lib.conflict_matrix_smem_bytes(nr, nw) > _SMEM_LIMIT:
-        raise ValueError(f"footprint too wide for one tile's shared "
-                         f"memory: nr={nr}, nw={nw}")
+    kr, kw = staging_chunks(nr, nw, nr, nw)
     out = torch.empty((w, w), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.conflict_matrix_launch(
             read_ids.data_ptr(), write_ids.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), w, nr, nw, int(strict), stream)
+            out.data_ptr(), w, nr, nw, int(strict), kr, kw, stream)
     if rc != 0:
         raise RuntimeError(f"conflict_matrix kernel launch failed: CUDA "
                            f"error {rc}")
@@ -116,18 +125,15 @@ def conflict_block_cuda(reads_i: torch.Tensor, writes_i: torch.Tensor,
     check_tensor("valid_i", valid_i, torch.bool, (wi,), dev)
     check_tensor("valid_j", valid_j, torch.bool, (wj,), dev)
     lib = _load()
-    if lib.conflict_block_smem_bytes(nr_i, nw_i, nr_j, nw_j) > _SMEM_LIMIT:
-        raise ValueError(f"footprints too wide for one tile's shared "
-                         f"memory: nr_i={nr_i}, nw_i={nw_i}, nr_j={nr_j}, "
-                         f"nw_j={nw_j}")
+    kr, kw = staging_chunks(nr_i, nw_i, nr_j, nw_j)
     out = torch.empty((wi, wj), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.conflict_block_launch(
             reads_i.data_ptr(), writes_i.data_ptr(), reads_j.data_ptr(),
             writes_j.data_ptr(), valid_i.data_ptr(), valid_j.data_ptr(),
-            out.data_ptr(), wi, wj, nr_i, nw_i, nr_j, nw_j, int(strict),
-            stream)
+            out.data_ptr(), wi, wj, nr_i, nw_i, nr_j, nw_j, int(strict), kr,
+            kw, stream)
     if rc != 0:
         raise RuntimeError(f"conflict_block kernel launch failed: CUDA "
                            f"error {rc}")

@@ -13,20 +13,40 @@ each side with its own slot counts. Every column task precedes every row
 task in chain order, so the block is the full rectangle, masked by
 validity only.
 
-Broadcast over [Wi, Wj, n_a, n_b]; the CPU path and the kernels' parity
-checks use them.
+The id matches are a join on the ids (``_any_match``), so the memory is
+that of the ids and the matches at any footprint width; the CPU path and
+the kernels' parity checks use them.
 """
 from __future__ import annotations
 
 import torch
 
 
+def _used(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row, id) of every used slot (id >= 0) of x [W, n]."""
+    rows, cols = (x >= 0).nonzero(as_tuple=True)
+    return rows, x[rows, cols]
+
+
 def _any_match(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a: [Wi, na], b: [Wj, nb] -> [Wi, Wj] bool: rows i of a vs rows j
-    of b."""
-    eq = a[:, None, :, None] == b[None, :, None, :]      # [Wi, Wj, na, nb]
-    used = (a[:, None, :, None] >= 0) & (b[None, :, None, :] >= 0)
-    return (eq & used).any(dim=3).any(dim=2)
+    """a: [Wi, na], b: [Wj, nb] -> [Wi, Wj] bool: some id >= 0 lies in
+    both row i of a and row j of b. Each used slot of a meets the used
+    slots of b that hold its id (b sorted by id, a range per slot of a)."""
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.bool,
+                      device=a.device)
+    rows_a, ids_a = _used(a)
+    rows_b, ids_b = _used(b)
+    ids_b, order = torch.sort(ids_b)
+    rows_b = rows_b[order]
+    lo = torch.searchsorted(ids_b, ids_a)
+    count = torch.searchsorted(ids_b, ids_a, right=True) - lo
+    # slot s of a meets b's sorted slots lo[s], ..., lo[s] + count[s] - 1
+    s = torch.repeat_interleave(torch.arange(ids_a.numel(), device=a.device),
+                                count)
+    start = torch.cumsum(count, 0) - count
+    k = torch.arange(s.numel(), device=a.device) + (lo - start)[s]
+    out[rows_a[s], rows_b[k]] = True
+    return out
 
 
 def conflict_matrix_ref(read_ids: torch.Tensor, write_ids: torch.Tensor,

@@ -5,8 +5,11 @@ attention with an online softmax in float32, causal and sliding-window
 masks, GQA through the kv head index, queries aligned to the end of the
 keys when S > T, and tiles the masks leave empty never visited (see the
 source's note for the design and what bounds it). Unlike the TPU kernel
-it takes any T <= S and any S: the kernel masks the ragged tails.
-``launches`` counts the launches of this wrapper; nothing else changes it.
+it takes any T <= S and any S: the kernel masks the ragged tails. The
+source holds two kernels, chosen by dtype: bfloat16 runs both products on
+the tensor cores (mma.sync), float32 on the CUDA cores in float32 (TF32
+would not meet its tolerance). ``launches`` counts the launches of this
+wrapper; nothing else changes it.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from repro_torch.kernels import _build, check_tensor
 #: number of kernel launches made through ``flash_attention_cuda``
 launches = 0
 
-#: widest head the kernel takes (4 values a lane of a warp); csrc/flash.cu
-#: checks the same bound
+#: widest head the kernels take (float32: 4 values a lane of a warp; bf16:
+#: heads padded to 32, 64 or 128); csrc/flash.cu checks the same bound
 MAX_HEAD_DIM = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -99,14 +99,85 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         conflict_kernel.conflict_matrix_cuda(reads.t().contiguous().t(),
                                              writes, valid)
     conf = torch.zeros((64, 64), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="window"):
-        levels_kernel.wave_levels_cuda(
-            torch.zeros((levels_kernel.MAX_WINDOW + 1,) * 2,
-                        dtype=torch.bool, device=cuda_device),
-            torch.ones(levels_kernel.MAX_WINDOW + 1, dtype=torch.bool,
-                       device=cuda_device))
     with pytest.raises(ValueError, match="shape"):
         levels_kernel.wave_levels_cuda(conf, valid[:10])
+
+
+@pytest.mark.parametrize("w", [8193, 16384])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_levels_kernel_past_8192_matches_plain(cuda_device, w, with_base):
+    """Windows the first kernel refused (its level vector lived in 32 KB
+    of shared memory); the reference takes any window."""
+    gen = torch.Generator(device=cuda_device).manual_seed(w)
+    conf = (torch.rand((w, w), generator=gen, device=cuda_device)
+            < 2e-4).tril(diagonal=-1)
+    valid = torch.arange(w, device=cuda_device) < w - w // 7
+    base = (torch.randint(0, 4, (w,), generator=gen, dtype=torch.int32,
+                          device=cuda_device) if with_base else None)
+    before = levels_kernel.launches
+    got = levels_kernel.wave_levels_cuda(conf, valid, base)
+    assert levels_kernel.launches == before + 1
+    assert torch.equal(got, wave_levels(conf, valid, base=base,
+                                        backend="torch"))
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("padded", [False, True])
+def test_conflict_kernels_wide_footprint_match_plain(cuda_device, nw, strict,
+                                                     padded):
+    """Footprints past one stage of shared memory (the chunked kernels),
+    which the first kernels refused; the reference takes any width.
+    nr = 600 random slots, or SIS's layout on a hub graph: nr = 3057, each
+    row unused past a prefix of 1..12 slots but 2 % of the rows using
+    every slot, so the compares of a pass stop at a used extent that
+    differs from tile to tile."""
+    gen = torch.Generator().manual_seed(600 + nw + 10 * padded)
+    w = 200
+    nr, ids = (3057, 4 * w) if padded else (600, 8 * 600 * nw)
+    reads = torch.randint(0, ids, (w, nr), generator=gen, dtype=torch.int32)
+    writes = torch.randint(0, ids, (w, nw), generator=gen, dtype=torch.int32)
+    reads[torch.rand((w, nr), generator=gen) < 0.2] = -1
+    if padded:
+        used = torch.randint(1, 13, (w, 1), generator=gen)
+        used[torch.rand((w, 1), generator=gen) < 0.02] = nr
+        reads[torch.arange(nr)[None, :] >= used] = -1
+    valid = torch.arange(w) < w - w // 7
+    reads, writes, valid = (x.to(cuda_device) for x in (reads, writes, valid))
+    before = conflict_kernel.launches
+    got = conflict_matrix(reads, writes, valid, strict=strict)
+    assert conflict_kernel.launches == before + 1
+    assert torch.equal(got, conflict_matrix(reads, writes, valid,
+                                            strict=strict, backend="torch"))
+    narrow_r, narrow_w, narrow_v = _footprint(nw, 77, 3, 1, cuda_device)
+    for args in ((reads, writes, narrow_r, narrow_w, valid, narrow_v),
+                 (narrow_r, narrow_w, reads, writes, narrow_v, valid)):
+        before = conflict_kernel.block_launches
+        got = conflict_block(*args, strict=strict)
+        assert conflict_kernel.block_launches == before + 1
+        assert torch.equal(got, conflict_block(*args, strict=strict,
+                                               backend="torch"))
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "wavefront_overlap"])
+def test_window_past_8192_on_card_matches_oracle(cuda_device, engine):
+    """run_engine at W = 16384 (the levels kernel once per window), which
+    the first levels kernel refused: the final state equals the oracle."""
+    topo = watts_strogatz(50_000, 6, 0.1, prng.key(4, device=cuda_device),
+                          device=cuda_device)
+    model = VoterModel(topo)
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    cfg = ProtocolConfig(window=16384)
+    total = 16384 + 1000
+    levels_kernel.launches = 0
+    out, stats = run_engine(model, state0, total, seed=6, config=cfg,
+                            engine=engine, device=cuda_device)
+    assert levels_kernel.launches == stats["n_windows"] == 2
+    oracle = run_oracle(model, state0, total, seed=6, config=cfg,
+                        device=cuda_device)
+    for k in out:
+        assert torch.equal(out[k], oracle[k])
 
 
 @pytest.mark.parametrize("cls", [VoterModel, SISModel])
@@ -162,9 +233,9 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda_device):
         conflict_kernel.conflict_block_cuda(ri.long(), wri, ri, wri, vi, vi)
     with pytest.raises(ValueError, match="shape"):
         conflict_kernel.conflict_block_cuda(ri, wri, ri, wri, vi, vi[:10])
-    wide = torch.zeros((64, 200), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="shared"):
-        conflict_kernel.conflict_block_cuda(wide, wri, wide, wri, vi, vi)
+    with pytest.raises(ValueError, match="contiguous"):
+        conflict_kernel.conflict_block_cuda(ri.t().contiguous().t(), wri, ri,
+                                            wri, vi, vi)
 
 
 def _count_waves(model):
