@@ -13,10 +13,13 @@ failure:
      sources, one nvcc each, in parallel) and prints the build seconds;
   3. holds each kernel bit for bit against its plain PyTorch version on
      the card: conflict at W in {1, 37, 128, 129, 1000, 4096}, nr in
-     {1, 21}, nw in {1, 2}, both hazard rules, and at footprints wider
-     than one stage of shared memory (the chunked kernel: W in {129,
-     512}, nr in {193, 600, 2358}, and SIS's padded layout at nr =
-     3057); levels at the same W on random
+     {1, 21}, nw in {1, 2}, both hazard rules, at wide footprints (W in
+     {129, 512}, nr in {193, 600, 2358}, and SIS's padded layout at nr =
+     3057), on the inputs hardest for a join over the ids (a chain —
+     every task writes id 0 —, ids over 4 values, ids repeated within a
+     row, tasks that read what they write, ids near 2^31 - 1, every slot
+     unused, every task invalid) at W in {37, 4096}, and at W = 16384;
+     levels at the same W on random
      lower-triangular matrices of three densities, with and without a
      base floor, plus one matrix with entries above the diagonal, sparse
      windows of 8193 and 16384 with and without a base, a pure chain
@@ -26,9 +29,10 @@ failure:
      passes each case took and whether the blocked sweep finished it
      printed per case; the cross-window block at (Wi, Wj) in {(1, 1),
      (37, 129), (128, 128), (4096, 4096), (1000, 37)} with each side's
-     (nr, nw) in {(1, 1), (21, 2)}, and at (129, 512) with nr in {193,
-     600, 2358} on one side or both and padded at 3057 on both, both
-     rules, invalid tails; the
+     (nr, nw) in {(1, 1), (21, 2)}, at (129, 512) with nr in {193,
+     600, 2358} on one side or both and padded at 3057 on both, on the
+     hard inputs at (Wi, Wj) in {(129, 37), (4096, 1000)}, and at
+     Wi = Wj = 16384, both rules, invalid tails; the
      Axelrod wave at W in {1, 37, 128, 4096} x F in {1, 3, 37, 128, 500}
      with masks of three densities, ties forced among the uniforms and
      rows with every feature equal; the SIRS wave at W in {1, 8, 37,
@@ -103,9 +107,10 @@ failure:
      up to 1 + max degree ids) through ``wavefront`` and
      ``wavefront_overlap`` at W = 4096 for 8 windows — launches counted,
      the final state against the oracle and a CPU run of the port
-     (state and stats), ms per window, and the chunked conflict kernels
-     on a real window and boundary, each bit for bit against its plain
-     version under both rules, and their ms; then voter at W = 16384 for two windows
+     (state and stats), ms per window, and both conflict kernels on a
+     real window and boundary, each bit for bit against its plain
+     version under both rules, their ms beside their bounds; then voter
+     at W = 16384 for two windows
      through both engines against the oracle;
  11. the LM serving path at smollm-360m's full width (32 layers,
      d_model 960, vocab 49152), random weights from the seed: 16 requests
@@ -160,13 +165,19 @@ prints no result.
 
 ``--time-kernels`` runs none of the above either: it prints the device ms
 (CUDA events, median of 25) of the conflict and block kernels on real
-voter and SIS windows and boundaries (Watts–Strogatz, n = 10^6, W = 4096),
-of the levels kernel on those windows, on a random window of density 0.3
-and on a chain at W = 4096, and on serving-shaped windows of 8 (no
-conflict, a chain; also the host µs per call, launches back to back),
-and of the flash kernel at smollm-360m's prefill in bf16, with the port
-package under ``--src`` — so that the kernels of two trees can be
-compared in one call, each tree in its own process.
+voter and SIS windows and boundaries (Watts–Strogatz, n = 10^6, W = 4096;
+for SIS also the host µs per call, launches back to back, and the
+device's busy ms per window over 16 windows of the barrier and overlap
+paths, all kernels and the conflict kernels alone), on the hub
+graph's window and boundary (3,057 slots), on a chain (SIS's slots, every
+task writes id 0) and on a hot-id window (SIS's slots, ids over 100
+values, density ~0.3), each with its density; of the levels kernel on the
+voter and SIS windows, on a random window of density 0.3 and on a chain
+at W = 4096, and on serving-shaped windows of 8 (no conflict, a chain;
+also the host µs per call); and of the flash kernel at smollm-360m's
+prefill in bf16, with the port package under ``--src`` — so that the
+kernels of two trees can be compared in one call, each tree in its own
+process.
 
 ``--time-overlap`` runs none of the above: it prints the overlap path's
 wall ms per window for Axelrod (F = 3) and SIRS (s = 50) at n = 10^6,
@@ -200,15 +211,14 @@ PARITY_WINDOWS = (1, 37, 128, 129, 1000, 4096)
 BLOCK_SHAPES = ((1, 1), (37, 129), (128, 128), (4096, 4096), (1000, 37))
 SLOTS = ((1, 1), (21, 2))
 LEVEL_DENSITIES = (0.001, 0.02, 0.3)
-#: footprints wider than one stage of shared memory (nr + nw > 192): the
-#: chunked conflict kernels; 2358 = 1 + the max degree of a Barabási–Albert
-#: graph at n = 10^6 (BENCH_topology.json)
+#: wide footprints (nr + nw > 192, past the first kernels' 48 KB stage);
+#: 2358 = 1 + the max degree of a Barabási–Albert graph at n = 10^6
+#: (BENCH_topology.json)
 WIDE_READS = (193, 600, 2358)
 WIDE_WINDOWS = (129, 512)
 #: SIS's layout at the hub-SIS phase's width (1 + max degree 3,056): every
 #: row padded with -1 past a short used prefix (up to PADDED_PREFIX slots),
-#: a few hub rows using every slot, so the chunked kernels' per-pass used
-#: extent differs from tile to tile and mostly stops the compares early
+#: a few hub rows using every slot
 PADDED_READS = 3057
 PADDED_PREFIX = 12
 PADDED_HUBS = 0.02
@@ -219,10 +229,24 @@ BIG_LEVEL_WINDOWS = ((8193, 1e-4), (8193, 1e-3), (16384, 1e-4))
 LEVELS_L2_WINDOW = 57_345
 #: the hub-graph SIS phase: a preferential-attachment graph at n = 10^5
 #: (m = 3 edges per arrival) with hubs planted up to HUB_DEGREES, so a
-#: task reads up to 1 + max degree ids (the chunked conflict kernels)
+#: task reads up to 1 + max degree ids
 HUB_NODES = 100_000
 HUB_M = 3
 HUB_DEGREES = (2400, 1500, 800)
+#: the conflict kernels' hard inputs (the kinds of tests/conflict_cases.py;
+#: see hard_footprint), on the prefix matrix at HARD_WINDOWS and on the
+#: block at HARD_BLOCKS, then random footprints at BIG_PARITY_WINDOW (the
+#: big-window phase's width)
+HARD_KINDS = ("chain", "hot", "duplicates", "self_read", "near_max",
+              "unused", "invalid")
+HARD_WINDOWS = (37, 4096)
+HARD_BLOCKS = ((129, 37), (4096, 1000))
+BIG_PARITY_WINDOW = 16384
+INT32_MAX = 2**31 - 1
+#: --time-kernels' hot-id window: SIS's slots (18 reads, 1 write) over 100
+#: ids conflict at a density of about 0.3, as the levels kernel's dense
+#: windows do
+HOT_IDS = 100
 AXELROD_WINDOWS = (1, 37, 128, 4096)
 AXELROD_FEATURES = (1, 3, 37, 128, 500)
 MASK_DENSITIES = (0.2, 0.7, 1.0)
@@ -278,36 +302,91 @@ def random_footprint(torch, gen, w, nr, nw, device, ids=None, pad=False):
     return reads.to(device), writes.to(device), valid.to(device)
 
 
+def hard_footprint(torch, gen, kind, w, nr, nw, device):
+    """One side's footprint of a hard kind (tests/conflict_cases.py makes
+    the same kinds with numpy): ids over max(4, w) values, 20 % of the
+    slots unused, an invalid tail, and then
+      chain       every task writes id 0 (and its other write slots none);
+      hot         every id over 4 values, no slot unused;
+      duplicates  each row repeats its ids across its slots;
+      self_read   every task reads the id it writes;
+      near_max    ids within 8 of 2^31 - 1;
+      unused      every slot unused;
+      invalid     every task invalid;
+      random      nothing more."""
+    span = 4 if kind == "hot" else max(4, w)
+    reads = torch.randint(0, span, (w, nr), generator=gen, dtype=torch.int32)
+    writes = torch.randint(0, span, (w, nw), generator=gen, dtype=torch.int32)
+    if kind not in ("hot", "chain"):
+        reads[torch.rand((w, nr), generator=gen) < 0.2] = -1
+        writes[torch.rand((w, nw), generator=gen) < 0.2] = -1
+    valid = torch.arange(w) < w - w // 7
+    if kind == "chain":
+        writes.fill_(-1)
+        writes[:, 0] = 0
+    elif kind == "duplicates":
+        reads[:] = reads[:, :1]
+        writes[:] = writes[:, :1]
+    elif kind == "self_read":
+        reads[:, 0] = writes[:, 0]
+    elif kind == "near_max":
+        reads = torch.where(reads >= 0, INT32_MAX - reads % 8, reads)
+        writes = torch.where(writes >= 0, INT32_MAX - writes % 8, writes)
+    elif kind == "unused":
+        reads.fill_(-1)
+        writes.fill_(-1)
+    elif kind == "invalid":
+        valid.fill_(False)
+    return reads.to(device), writes.to(device), valid.to(device)
+
+
+def hard_slots(w):
+    """(nr, nw) of the row side and of the column side of a hard case:
+    SIS's 18 reads from W = 4096 on, 3 below; two writes on the row side."""
+    nr = 18 if w >= 4096 else 3
+    return (nr, 2), (nr, 1)
+
+
 def check_conflict_parity(torch, conflict_matrix) -> int:
-    """Narrow footprints at PARITY_WINDOWS, then wide ones (the chunked
-    kernel) with ids over 8·nr·nw values, so that some cells conflict and
-    some do not, then SIS's padded layout at PADDED_READS slots."""
+    """Narrow footprints at PARITY_WINDOWS, then wide ones with ids over
+    8·nr·nw values, so that some cells conflict and some do not, then
+    SIS's padded layout at PADDED_READS slots; then the hard inputs at
+    HARD_WINDOWS and random footprints at BIG_PARITY_WINDOW."""
     gen = torch.Generator().manual_seed(1)
-    worst, cases = 0, 0
+    cases = 0
     shapes = ([(w, nr, nw, None, False) for w in PARITY_WINDOWS
                for nr in (1, 21) for nw in (1, 2)]
               + [(w, nr, nw, 8 * nr * nw, False) for w in WIDE_WINDOWS
                  for nr in WIDE_READS for nw in (1, 2)]
               + [(w, PADDED_READS, nw, 4 * w, True) for w in WIDE_WINDOWS
                  for nw in (1, 2)])
+    shapes += [(w, *hard_slots(w)[0], kind, False) for w in HARD_WINDOWS
+               for kind in HARD_KINDS]
+    shapes += [(BIG_PARITY_WINDOW, 18, 1, "random", False)]
     for w, nr, nw, ids, pad in shapes:
         for strict in (True, False):
-            reads, writes, valid = random_footprint(torch, gen, w, nr, nw,
-                                                    "cuda", ids=ids, pad=pad)
+            if isinstance(ids, str):
+                reads, writes, valid = hard_footprint(torch, gen, ids, w, nr,
+                                                      nw, "cuda")
+            else:
+                reads, writes, valid = random_footprint(
+                    torch, gen, w, nr, nw, "cuda", ids=ids, pad=pad)
             got = conflict_matrix(reads, writes, valid, strict=strict,
                                   backend="cuda")
             want = conflict_matrix(reads, writes, valid, strict=strict,
                                    backend="torch")
             torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max())
-            worst = max(worst, err)
-            cases += 1
-            if err:
+            if not torch.equal(got, want):
                 fail(f"conflict kernel != plain version at W={w} nr={nr} "
-                     f"nw={nw} strict={strict} padded={pad}")
+                     f"nw={nw} strict={strict} padded={pad} ids={ids}: "
+                     f"{int((got != want).sum())} cells")
+            cases += 1
+            del got, want
     log(f"parity conflict: {cases} cases bit-exact (nr up to "
-        f"{PADDED_READS}, padded as SIS pads)")
-    return worst
+        f"{PADDED_READS}, padded as SIS pads; hard inputs "
+        f"{', '.join(HARD_KINDS)} at W in {HARD_WINDOWS}; W = "
+        f"{BIG_PARITY_WINDOW})")
+    return 0  # a case that differs fails: the worst error is 0
 
 
 def check_levels_parity(torch, wave_levels) -> int:
@@ -399,12 +478,13 @@ def check_levels_parity(torch, wave_levels) -> int:
 
 def check_block_parity(torch, conflict_block) -> int:
     """Narrow footprints at BLOCK_SHAPES with each side's slots in SLOTS,
-    then wide ones (the chunked kernel) on one side or both at
-    WIDE_WINDOWS, ids over 16·nr values, then SIS's padded layout at
-    PADDED_READS slots on both sides; ids drawn over one range, so the two
-    sides collide."""
+    then wide ones on one side or both at WIDE_WINDOWS, ids over 16·nr
+    values, then SIS's padded layout at PADDED_READS slots on both sides;
+    ids drawn over one range, so the two sides collide. Then the hard
+    inputs at HARD_BLOCKS and random footprints at BIG_PARITY_WINDOW on
+    both sides."""
     gen = torch.Generator().manual_seed(3)
-    worst, cases = 0, 0
+    cases = 0
     pr = PADDED_READS
     shapes = ([(wi, wj, si, sj, None, False) for wi, wj in BLOCK_SHAPES
                for si in SLOTS for sj in SLOTS]
@@ -413,26 +493,38 @@ def check_block_parity(torch, conflict_block) -> int:
                                 ((21, 2), (nr, 1)))]
               + [(*WIDE_WINDOWS, si, sj, 4 * WIDE_WINDOWS[1], True)
                  for si, sj in (((pr, 1), (pr, 1)), ((pr, 2), (pr, 1)))])
+    shapes += [(wi, wj, *hard_slots(wi), kind, False)
+               for wi, wj in HARD_BLOCKS for kind in HARD_KINDS]
+    big = BIG_PARITY_WINDOW
+    shapes += [(big, big, (18, 1), (18, 1), "random", False)]
     for wi, wj, (nr_i, nw_i), (nr_j, nw_j), ids, pad in shapes:
         for strict in (True, False):
-            ri, wri, vi = random_footprint(torch, gen, wi, nr_i, nw_i, "cuda",
-                                           ids=ids, pad=pad)
-            rj, wrj, vj = random_footprint(torch, gen, wj, nr_j, nw_j, "cuda",
-                                           ids=ids, pad=pad)
+            if isinstance(ids, str):
+                ri, wri, vi = hard_footprint(torch, gen, ids, wi, nr_i, nw_i,
+                                             "cuda")
+                rj, wrj, vj = hard_footprint(torch, gen, ids, wj, nr_j, nw_j,
+                                             "cuda")
+            else:
+                ri, wri, vi = random_footprint(torch, gen, wi, nr_i, nw_i,
+                                               "cuda", ids=ids, pad=pad)
+                rj, wrj, vj = random_footprint(torch, gen, wj, nr_j, nw_j,
+                                               "cuda", ids=ids, pad=pad)
             args = (ri, wri, rj, wrj, vi, vj)
             got = conflict_block(*args, strict=strict, backend="cuda")
             want = conflict_block(*args, strict=strict, backend="torch")
             torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max())
-            worst = max(worst, err)
-            cases += 1
-            if err:
+            if not torch.equal(got, want):
                 fail(f"conflict_block kernel != plain version at Wi={wi} "
                      f"Wj={wj} (nr, nw)_i=({nr_i}, {nw_i}) (nr, nw)_j="
-                     f"({nr_j}, {nw_j}) strict={strict} padded={pad}")
+                     f"({nr_j}, {nw_j}) strict={strict} padded={pad} "
+                     f"ids={ids}: {int((got != want).sum())} cells")
+            cases += 1
+            del got, want
     log(f"parity conflict_block: {cases} cases bit-exact (nr up to "
-        f"{PADDED_READS}, padded as SIS pads)")
-    return worst
+        f"{PADDED_READS}, padded as SIS pads; hard inputs "
+        f"{', '.join(HARD_KINDS)} at (Wi, Wj) in {HARD_BLOCKS}; Wi = Wj = "
+        f"{big})")
+    return 0  # a case that differs fails: the worst error is 0
 
 
 def check_axelrod_parity(torch, axelrod_wave) -> int:
@@ -625,6 +717,40 @@ def window_breakdown(torch, models, n_windows: int = 16):
         log(f"window breakdown {name} W={WINDOW}: " + json.dumps(row))
 
 
+def profile_kernels(torch, name, model, engine, n_windows):
+    """(device µs, launches) by kernel name over n_windows windows of one
+    path (torch.profiler)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import ProtocolConfig, run_engine
+    from repro_torch.utils import prng
+
+    state0 = model.init_state(prng.key(SEED + 1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_engine(model, state0, n_windows * WINDOW, seed=SEED,
+                   config=ProtocolConfig(window=WINDOW), engine=engine)
+        torch.cuda.synchronize()
+    # the protocol.* ranges (obs/profiler.py) appear on the device
+    # timeline as user annotations spanning their kernels: not kernels
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    if not kernels:
+        fail(f"{name}: the profiler saw no device time")
+    ranges = {e.name for e in kernels if e.name.startswith("protocol.")}
+    if ranges:
+        fail(f"{name}: profiler ranges counted as kernels: {ranges}")
+    us, calls = Counter(), Counter()
+    for e in kernels:
+        us[e.name] += e.device_time
+        calls[e.name] += 1
+    return us, calls
+
+
 def device_busy(torch, models, results, engine="wavefront",
                 n_windows: int = 16):
     """Device time per window of a path (torch.profiler: the
@@ -633,43 +759,15 @@ def device_busy(torch, models, results, engine="wavefront",
     the kernels that take the most device time. The profiler's host
     overhead stretches the profiled wall clock, so the wall time comes
     from the path's unprofiled run."""
-    from collections import Counter
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import ProtocolConfig, run_engine
-    from repro_torch.utils import prng
-
-    cfg = ProtocolConfig(window=WINDOW)
     for name, model in models.items():
-        state0 = model.init_state(prng.key(SEED + 1))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_engine(model, state0, n_windows * WINDOW, seed=SEED,
-                       config=cfg, engine=engine)
-            torch.cuda.synchronize()
-        # the protocol.* ranges (obs/profiler.py) appear on the device
-        # timeline as user annotations spanning their kernels: not kernels
-        kernels = [e for e in prof.events()
-                   if str(e.device_type).endswith("CUDA")
-                   and not e.is_user_annotation]
-        if not kernels:
-            fail(f"{name}: the profiler saw no device time")
-        ranges = {e.name for e in kernels if e.name.startswith("protocol.")}
-        if ranges:
-            fail(f"{name}: profiler ranges counted as kernels: {ranges}")
-        us, calls = Counter(), Counter()
-        for e in kernels:
-            us[e.name] += e.device_time
-            calls[e.name] += 1
+        us, calls = profile_kernels(torch, name, model, engine, n_windows)
         busy = sum(us.values()) / 1e3 / n_windows
         wall_ms = results[name]["seconds"] / results[name]["n_windows"] * 1e3
         row = {"device_ms_per_window": busy,
                "wall_ms_per_window": wall_ms,
                "busy_share": busy / wall_ms,
                "idle_share": 1.0 - busy / wall_ms,
-               "kernels_per_window": len(kernels) / n_windows,
+               "kernels_per_window": sum(calls.values()) / n_windows,
                "top": [[k[:60], t / 1e3 / n_windows, calls[k] / n_windows]
                        for k, t in us.most_common(4)]}
         log(f"device time {engine} {name} W={WINDOW}: " + json.dumps(row))
@@ -1089,6 +1187,17 @@ def time_overlap(torch, total_tasks):
     log("overlap wall per window: " + json.dumps(row))
 
 
+def host_us(torch, fn, calls=500):
+    """Host µs per call of fn, launched back to back (one synchronize
+    before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def time_kernels(torch):
     """Device ms of the conflict, block, levels and flash kernels on
     inputs made from the seed, with whichever port package is first on
@@ -1108,19 +1217,55 @@ def time_kernels(torch):
     row = {"package": str(Path(repro_torch.__file__).parent.parent)}
     topo = watts_strogatz(N_NODES, DEGREE, REWIRE, prng.key(SEED))
     valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
-    for name, model in (("voter", VoterModel(topo)), ("sis", SISModel(topo))):
-        key = prng.key(SEED)
-        r0, w0 = (x.contiguous() for x in
-                  model.task_footprint(model.create_tasks(key, 0, WINDOW)))
-        r1, w1 = (x.contiguous() for x in model.task_footprint(
-            model.create_tasks(key, WINDOW, WINDOW)))
-        conf = conflict_matrix(r0, w0, valid)
+
+    def conflict_pair(name, r0, w0, r1, w1):
+        """The prefix matrix of window (r0, w0) and the block of the next
+        window (r1, w1) against it, timed, with their densities."""
         row[f"conflict_{name}_ms"] = cuda_event_ms(
             lambda: conflict_matrix(r0, w0, valid, backend="cuda"))
         row[f"block_{name}_ms"] = cuda_event_ms(lambda: conflict_block(
             r1, w1, r0, w0, valid, valid, backend="cuda"))
+        row[f"conflict_{name}_density"] = float(
+            conflict_matrix(r0, w0, valid).sum()) / (WINDOW * (WINDOW - 1)
+                                                     / 2)
+        row[f"block_{name}_density"] = float(conflict_block(
+            r1, w1, r0, w0, valid, valid).sum()) / (WINDOW * WINDOW)
+
+    for name, model in (("voter", VoterModel(topo)), ("sis", SISModel(topo))):
+        r0, w0 = window_footprints(model)
+        r1, w1 = window_footprints(model, WINDOW)
+        conflict_pair(name, r0, w0, r1, w1)
+        if name == "sis":  # the host's cost of a call, back to back
+            row["conflict_sis_host_us"] = host_us(
+                torch, lambda: conflict_matrix(r0, w0, valid, backend="cuda"))
+            row["block_sis_host_us"] = host_us(torch, lambda: conflict_block(
+                r1, w1, r0, w0, valid, valid, backend="cuda"))
+        conf = conflict_matrix(r0, w0, valid)
         row[f"levels_{name}_ms"] = cuda_event_ms(
             lambda: wave_levels(conf, valid, backend="cuda"))
+        if name == "sis":  # the device's busy ms per window on both paths
+            for engine in ("wavefront", "wavefront_overlap"):
+                us, _ = profile_kernels(torch, name, model, engine, 16)
+                row[f"busy_sis_{engine}_ms"] = sum(us.values()) / 16e3
+                row[f"busy_sis_{engine}_conflict_ms"] = sum(
+                    t for k, t in us.items() if "conflict" in k) / 16e3
+    # the hub graph's window and boundary (3,057 slots), a chain (SIS's
+    # slots, every task writes id 0) and a hot-id window (SIS's slots, ids
+    # over HOT_IDS values)
+    hub, _, _ = hub_topology(torch)
+    hub_sis = SISModel(hub)
+    conflict_pair("hub", *window_footprints(hub_sis),
+                  *window_footprints(hub_sis, WINDOW))
+    del hub, hub_sis
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for name, span in (("chain", N_NODES), ("hot", HOT_IDS)):
+        r0, w0, r1, w1 = (torch.randint(0, span, (WINDOW, n), generator=gen,
+                                        dtype=torch.int32, device=DEVICE)
+                          for n in (18, 1, 18, 1))
+        if name == "chain":
+            w0.zero_()
+            w1.zero_()
+        conflict_pair(name, r0, w0, r1, w1)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     dense = (torch.rand((WINDOW, WINDOW), generator=gen, device=DEVICE)
              < 0.3).tril(diagonal=-1)
@@ -1139,13 +1284,8 @@ def time_kernels(torch):
         c8 = c8.to(DEVICE)
         row[f"levels_w8_{what}_ms"] = cuda_event_ms(
             lambda: wave_levels(c8, v8, backend="cuda"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(500):
-            wave_levels(c8, v8, backend="cuda")
-        torch.cuda.synchronize()
-        row[f"levels_w8_{what}_host_us"] = (time.perf_counter() - t0) / 500 \
-            * 1e6
+        row[f"levels_w8_{what}_host_us"] = host_us(
+            torch, lambda: wave_levels(c8, v8, backend="cuda"))
     q, k, v = flash_inputs(torch, 1, 15, 5, 2048, 2048, 64, torch.bfloat16,
                            99)
     row["flash_bf16_ms"] = cuda_event_ms(
@@ -1207,14 +1347,56 @@ def hub_graph_edges():
     return np.asarray(edges, dtype=np.int64)
 
 
+def window_footprints(model, first=0):
+    """(reads, writes), contiguous, of the window of WINDOW tasks that
+    starts at task `first`, drawn from the seed."""
+    from repro_torch.utils import prng
+
+    recipes = model.create_tasks(prng.key(SEED), first, WINDOW)
+    return tuple(x.contiguous() for x in model.task_footprint(recipes))
+
+
+def conflict_cost(sides, out):
+    """(bytes, operations) the conflict kernels need on these inputs:
+    every id slot and validity byte of each side in `sides` ((reads,
+    writes, valid); one side for the prefix matrix, two for the block) and
+    every byte of the output `out`, once each; one operation per used slot
+    of a valid task (its lookup or insert) and one per cell set. A join
+    compares no slots that share no id."""
+    nbytes, ops = out.numel(), float(out.sum())
+    for reads, writes, valid in sides:
+        nbytes += 4 * (reads.numel() + writes.numel()) + valid.numel()
+        ops += float(((reads >= 0).sum(1) + (writes >= 0).sum(1))[valid]
+                     .sum())
+    return nbytes, ops
+
+
+def bound_ms(nbytes, ops, ops_per_s=CUDA_CORE_OPS_PER_S):
+    """(max(bytes / HBM rate, ops / ops_per_s) in ms, which bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def hub_topology(torch):
+    """The hub graph on the card, and the seconds its build took."""
+    from repro_torch.topology import from_edges
+
+    t0 = time.perf_counter()
+    edges = hub_graph_edges()
+    topo = from_edges(HUB_NODES, edges, device=DEVICE)
+    torch.cuda.synchronize()
+    return topo, len(edges), time.perf_counter() - t0
+
+
 def drive_hub_sis(torch):
-    """SIS on the hub graph (a task reads 1 + max degree ids, far past one
-    stage of the conflict kernels' shared memory) through wavefront and
-    wavefront_overlap at W = 4096 for CHECK_WINDOWS windows: launches
-    counted, the final state against the oracle and a CPU run of the port
-    (state and stats). Then the chunked conflict kernels on a real window
-    and boundary at that width: each equal to its plain version bit for
-    bit under both hazard rules, and timed. Returns the launches."""
+    """SIS on the hub graph (a task reads 1 + max degree ids, 3,057 slots)
+    through wavefront and wavefront_overlap at W = 4096 for CHECK_WINDOWS
+    windows: launches counted, the final state against the oracle and a
+    CPU run of the port (state and stats). Then both conflict kernels on
+    a real window and boundary at that width: each equal to its plain
+    version bit for bit under both hazard rules, timed beside its bound.
+    Returns the launches."""
     from repro_torch.core import ProtocolConfig, run_engine, run_oracle
     from repro_torch.kernels.conflict import conflict as conflict_kernel
     from repro_torch.kernels.conflict.ops import (
@@ -1223,15 +1405,10 @@ def drive_hub_sis(torch):
     )
     from repro_torch.kernels.levels import levels as levels_kernel
     from repro_torch.mabs import SISModel
-    from repro_torch.topology import from_edges
     from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
 
-    t0 = time.perf_counter()
-    edges = hub_graph_edges()
-    topo = from_edges(HUB_NODES, edges, device=DEVICE)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    topo, n_edges, build_s = hub_topology(torch)
     model = SISModel(topo)
     cpu_model = SISModel(topo.to("cpu"))
     state0 = model.init_state(prng.key(SEED + 1))
@@ -1239,7 +1416,7 @@ def drive_hub_sis(torch):
     total = CHECK_WINDOWS * WINDOW
     oracle = run_oracle(model, state0, total, seed=SEED, config=cfg)
     launches = {"conflict": 0, "levels": 0, "conflict_block": 0}
-    row = {"n_nodes": HUB_NODES, "edges": len(edges),
+    row = {"n_nodes": HUB_NODES, "edges": n_edges,
            "max_degree": topo.max_degree, "read_slots": 1 + topo.max_degree,
            "window": WINDOW, "tasks": total, "build_seconds": build_s}
     for engine in ("wavefront", "wavefront_overlap"):
@@ -1272,12 +1449,9 @@ def drive_hub_sis(torch):
         row[engine] = {"ms_per_window": secs / nw * 1e3,
                        "total_waves": stats["total_waves"],
                        "launches": n}
-    # the chunked kernels on a real window and boundary at that width
-    key = prng.key(SEED)
-    reads, writes = (x.contiguous() for x in
-                     model.task_footprint(model.create_tasks(key, 0, WINDOW)))
-    reads_n, writes_n = (x.contiguous() for x in model.task_footprint(
-        model.create_tasks(key, WINDOW, WINDOW)))
+    # both kernels on a real window and boundary at that width
+    reads, writes = window_footprints(model)
+    reads_n, writes_n = window_footprints(model, WINDOW)
     valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
     for strict in (True, False):
         pairs = {
@@ -1298,8 +1472,14 @@ def drive_hub_sis(torch):
         reads, writes, valid, backend="cuda"))
     row["block_ms"] = cuda_event_ms(lambda: conflict_block(
         reads_n, writes_n, reads, writes, valid, valid, backend="cuda"))
-    row["conflict_density"] = float(conflict_matrix(reads, writes, valid)
-                                    .sum()) / (WINDOW * (WINDOW - 1) / 2)
+    conf = conflict_matrix(reads, writes, valid)
+    cross = conflict_block(reads_n, writes_n, reads, writes, valid, valid)
+    row["conflict_bound_ms"], row["conflict_bound_by"] = bound_ms(
+        *conflict_cost([(reads, writes, valid)], conf))
+    row["block_bound_ms"], row["block_bound_by"] = bound_ms(*conflict_cost(
+        [(reads_n, writes_n, valid), (reads, writes, valid)], cross))
+    row["conflict_density"] = float(conf.sum()) / (WINDOW * (WINDOW - 1) / 2)
+    del conf, cross
     row["used_read_slots_mean"] = float((reads >= 0).sum()) / WINDOW
     log("hub SIS: " + json.dumps(row))
     del topo, model, cpu_model, oracle
@@ -1340,13 +1520,11 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                ops, ops_per_s=CUDA_CORE_OPS_PER_S):
     """One entry of the kernels line: bound = max(bytes / HBM rate,
     ops / ``ops_per_s``, the CUDA-core rate unless given), in ms."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    bound, by = bound_ms(nbytes, ops, ops_per_s)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
 
 
 def kernel_rows(torch, models, overlap_models, launches, errs):
@@ -1356,7 +1534,6 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
     )
     from repro_torch.kernels.levels import levels as levels_kernel
     from repro_torch.kernels.levels.ops import wave_levels
-    from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
 
     rows = {}
@@ -1373,9 +1550,7 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
          "levels": int(wave_levels(dense, valid).max()) + 1}))
     del dense
     for name, model in models.items():
-        recipes = model.create_tasks(prng.key(SEED), 0, WINDOW)
-        reads, writes = model.task_footprint(recipes)
-        reads, writes = reads.contiguous(), writes.contiguous()
+        reads, writes = window_footprints(model)
         valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
         conf = conflict_matrix(reads, writes, valid)
 
@@ -1384,13 +1559,7 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         c_plain = cuda_event_ms(lambda: conflict_matrix(
             reads, writes, valid, backend="torch"), reps=5)
         nr, nw = reads.shape[1], writes.shape[1]
-        c_bytes = 4 * WINDOW * (nr + nw) + WINDOW + WINDOW * WINDOW
-        # compares between used slots over the valid pairs j < i
-        ur = (reads >= 0).sum(1).double()
-        uw = (writes >= 0).sum(1).double()
-        before_w = torch.cumsum(uw, 0) - uw   # sum over j < i
-        before_r = torch.cumsum(ur, 0) - ur
-        c_ops = float((ur * before_w + uw * before_w + uw * before_r).sum())
+        c_bytes, c_ops = conflict_cost([(reads, writes, valid)], conf)
 
         l_ms = cuda_event_ms(lambda: wave_levels(conf, valid,
                                                     backend="cuda"))
@@ -1425,13 +1594,8 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
     # the cross-window block on a real boundary: window 1's tasks against
     # window 0's, all alive (window 0 has not drained yet)
     for name, model in overlap_models.items():
-        key = prng.key(SEED)
-        rec_a = model.create_tasks(key, 0, WINDOW)
-        rec_b = model.create_tasks(key, WINDOW, WINDOW)
-        reads_j, writes_j = (x.contiguous()
-                             for x in model.task_footprint(rec_a))
-        reads_i, writes_i = (x.contiguous()
-                             for x in model.task_footprint(rec_b))
+        reads_j, writes_j = window_footprints(model)
+        reads_i, writes_i = window_footprints(model, WINDOW)
         valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
         lv_a = wave_levels(conflict_matrix(reads_j, writes_j, valid), valid)
         alive = lv_a >= 0
@@ -1443,15 +1607,8 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
             *args, backend="torch"), reps=5)
         nr_i, nw_i = reads_i.shape[1], writes_i.shape[1]
         nr_j, nw_j = reads_j.shape[1], writes_j.shape[1]
-        b_bytes = (WINDOW * WINDOW + 4 * (WINDOW * (nr_i + nw_i)
-                                          + WINDOW * (nr_j + nw_j))
-                   + 2 * WINDOW)
-        # compares between used slots over the valid (i, alive j) pairs
-        ur_i = float((reads_i >= 0)[valid].sum())
-        uw_i = float((writes_i >= 0)[valid].sum())
-        ur_j = float((reads_j >= 0)[alive].sum())
-        uw_j = float((writes_j >= 0)[alive].sum())
-        b_ops = ur_i * uw_j + uw_i * uw_j + uw_i * ur_j
+        b_bytes, b_ops = conflict_cost(
+            [(reads_i, writes_i, valid), (reads_j, writes_j, alive)], cross)
         info = {"nr_i": nr_i, "nw_i": nw_i, "nr_j": nr_j, "nw_j": nw_j,
                 "block_ms": b_ms, "block_plain_ms": b_plain,
                 "block_bytes": b_bytes, "block_ops": b_ops,

@@ -1,8 +1,10 @@
 """Bindings of the CUDA conflict kernels (``csrc/conflict.cu``).
 
-Ports of ``repro/kernels/conflict/conflict.py``, one 32×32 CTA per output
-tile, at any footprint width (see the source's note for the design and
-what bounds it):
+Ports of ``repro/kernels/conflict/conflict.py``, one cooperative launch
+per call at any footprint width and any window (see the source's note for
+the design and what bounds it): the output is zero-filled, the write ids
+go into hash tables, and each used id slot looks up the tasks that share
+its id.
 
   conflict_matrix_cuda  ``conflict_matrix_pallas``: the [W, W] strictly-
                         lower-triangular prefix-conflict matrix of one
@@ -12,10 +14,10 @@ what bounds it):
                         window's columns, validity mask only); counted by
                         ``block_launches``
 
-A footprint whose slots fit one stage of shared memory takes the narrow
-kernel, which stages every slot at once; a wider one takes the chunked
-kernel, ``staging_chunks`` slots a pass. Each counter changes only where
-its wrapper launches its kernel.
+The wrappers size the tables from the shapes alone (``table_slots``) and
+allocate them as scratch with ``torch.empty``: nothing is read back, so a
+call adds no host sync. Each counter changes only where its wrapper
+launches its kernel.
 """
 from __future__ import annotations
 
@@ -30,22 +32,25 @@ launches = 0
 #: number of kernel launches made through ``conflict_block_cuda``
 block_launches = 0
 
-#: id slots a tile stages per side and pass: 48 KB of shared memory hold
-#: two sides of 32 rows x 192 slots of 4 bytes (csrc/conflict.cu checks it)
-STAGE_SLOTS = 192
+#: scratch bytes per table slot: a bucket's key (8 bytes), its 8 task
+#: indices and an id's count (4 bytes each); and of the scratch's header,
+#: which precedes the tables (csrc/conflict.cu checks both)
+TABLE_SLOT_BYTES = 44
+SCRATCH_HEADER_BYTES = 32
 
 _lib = None
 
 
-def staging_chunks(nr_i: int, nw_i: int, nr_j: int,
-                   nw_j: int) -> tuple[int, int]:
-    """(kr, kw): the read and write slots of each side that one pass of
-    the chunked kernel stages, or (0, 0) when both sides' whole footprints
-    fit one stage (the narrow kernel)."""
-    if nr_i + nw_i + nr_j + nw_j <= 2 * STAGE_SLOTS:
-        return 0, 0
-    kw = min(max(nw_i, nw_j), STAGE_SLOTS // 2)
-    return min(max(nr_i, nr_j), STAGE_SLOTS - kw), kw
+def table_slots(w: int, nw: int) -> int:
+    """Slots of the hash table of one side's write ids: the least power of
+    two of at least 8·w·nw, so at most an eighth of them is taken and the
+    walks of the kernel's linear probing stay short."""
+    return 1 << (8 * w * nw - 1).bit_length()
+
+
+def scratch_bytes(*slots: int) -> int:
+    """Bytes of the kernel's scratch for tables of these slots."""
+    return SCRATCH_HEADER_BYTES + sum(slots) * TABLE_SLOT_BYTES
 
 
 def _load():
@@ -53,11 +58,21 @@ def _load():
     if _lib is None:
         lib = _build.load("conflict")
         lib.conflict_matrix_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_void_p])
         lib.conflict_matrix_launch.restype = ctypes.c_int
         lib.conflict_block_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
         lib.conflict_block_launch.restype = ctypes.c_int
+        lib.conflict_table_slot_bytes.restype = ctypes.c_longlong
+        lib.conflict_scratch_header_bytes.restype = ctypes.c_longlong
+        if (lib.conflict_table_slot_bytes() != TABLE_SLOT_BYTES
+                or lib.conflict_scratch_header_bytes()
+                != SCRATCH_HEADER_BYTES):
+            raise RuntimeError("csrc/conflict.cu's scratch layout does not "
+                               "match TABLE_SLOT_BYTES and "
+                               "SCRATCH_HEADER_BYTES")
         _lib = lib
     return _lib
 
@@ -82,13 +97,16 @@ def conflict_matrix_cuda(read_ids: torch.Tensor, write_ids: torch.Tensor,
     check_tensor("write_ids", write_ids, torch.int32, (w, nw), dev)
     check_tensor("valid", valid, torch.bool, (w,), dev)
     lib = _load()
-    kr, kw = staging_chunks(nr, nw, nr, nw)
+    slots = table_slots(w, nw)
     out = torch.empty((w, w), dtype=torch.bool, device=dev)
+    scratch = torch.empty((scratch_bytes(slots),), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.conflict_matrix_launch(
             read_ids.data_ptr(), write_ids.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), w, nr, nw, int(strict), kr, kw, stream)
+            out.data_ptr(), scratch.data_ptr(), w, nr, nw, int(strict),
+            slots, stream)
     if rc != 0:
         raise RuntimeError(f"conflict_matrix kernel launch failed: CUDA "
                            f"error {rc}")
@@ -125,15 +143,19 @@ def conflict_block_cuda(reads_i: torch.Tensor, writes_i: torch.Tensor,
     check_tensor("valid_i", valid_i, torch.bool, (wi,), dev)
     check_tensor("valid_j", valid_j, torch.bool, (wj,), dev)
     lib = _load()
-    kr, kw = staging_chunks(nr_i, nw_i, nr_j, nw_j)
+    # the row side's table serves the anti hazard, under the strict rule
+    slots_j = table_slots(wj, nw_j)
+    slots_i = table_slots(wi, nw_i) if strict else 0
     out = torch.empty((wi, wj), dtype=torch.bool, device=dev)
+    scratch = torch.empty((scratch_bytes(slots_j, slots_i),),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.conflict_block_launch(
             reads_i.data_ptr(), writes_i.data_ptr(), reads_j.data_ptr(),
             writes_j.data_ptr(), valid_i.data_ptr(), valid_j.data_ptr(),
-            out.data_ptr(), wi, wj, nr_i, nw_i, nr_j, nw_j, int(strict), kr,
-            kw, stream)
+            out.data_ptr(), scratch.data_ptr(), wi, wj, nr_i, nw_i, nr_j,
+            nw_j, int(strict), slots_i, slots_j, stream)
     if rc != 0:
         raise RuntimeError(f"conflict_block kernel launch failed: CUDA "
                            f"error {rc}")

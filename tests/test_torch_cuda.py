@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
+from conflict_cases import KINDS, block, footprint  # noqa: E402
+
 from repro_torch.core import ProtocolConfig, run_engine, run_oracle  # noqa: E402
 from repro_torch.kernels.axelrod import axelrod as axelrod_kernel  # noqa: E402
 from repro_torch.kernels.axelrod import axelrod_wave  # noqa: E402
@@ -126,12 +128,10 @@ def test_levels_kernel_past_8192_matches_plain(cuda_device, w, with_base):
 @pytest.mark.parametrize("padded", [False, True])
 def test_conflict_kernels_wide_footprint_match_plain(cuda_device, nw, strict,
                                                      padded):
-    """Footprints past one stage of shared memory (the chunked kernels),
-    which the first kernels refused; the reference takes any width.
-    nr = 600 random slots, or SIS's layout on a hub graph: nr = 3057, each
-    row unused past a prefix of 1..12 slots but 2 % of the rows using
-    every slot, so the compares of a pass stop at a used extent that
-    differs from tile to tile."""
+    """Footprints past the first kernels' 192 slots, which they refused;
+    the reference takes any width. nr = 600 random slots, or SIS's layout
+    on a hub graph: nr = 3057, each row unused past a prefix of 1..12
+    slots but 2 % of the rows using every slot."""
     gen = torch.Generator().manual_seed(600 + nw + 10 * padded)
     w = 200
     nr, ids = (3057, 4 * w) if padded else (600, 8 * 600 * nw)
@@ -219,6 +219,37 @@ def test_block_kernel_matches_plain(cuda_device, wi, wj, slots_i, slots_j,
     ri, wri, vi = _footprint(wi + slots_i[0], wi, *slots_i, cuda_device)
     rj, wrj, vj = _footprint(wj + slots_j[1], wj, *slots_j, cuda_device)
     args = (ri, wri, rj, wrj, vi, vj)
+    before = conflict_kernel.block_launches
+    got = conflict_block(*args, strict=strict)
+    assert conflict_kernel.block_launches == before + 1
+    assert got.shape == (wi, wj)
+    assert torch.equal(got, conflict_block(*args, strict=strict,
+                                           backend="torch"))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("w", [37, 129, 4096])
+def test_conflict_kernel_matches_plain_on_hard_inputs(cuda_device, kind,
+                                                      strict, w):
+    """The inputs hardest for a join over the ids (conflict_cases.py), as
+    test_torch_conflict.py holds the plain version to the reference."""
+    reads, writes, valid = (torch.as_tensor(x).to(cuda_device)
+                            for x in footprint(kind, w, 3, 2, seed=w))
+    before = conflict_kernel.launches
+    got = conflict_matrix(reads, writes, valid, strict=strict)
+    assert conflict_kernel.launches == before + 1
+    assert torch.equal(got, conflict_matrix(reads, writes, valid,
+                                            strict=strict, backend="torch"))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("wi,wj", [(37, 129), (129, 37), (4096, 1000)])
+def test_block_kernel_matches_plain_on_hard_inputs(cuda_device, kind, strict,
+                                                   wi, wj):
+    args = tuple(torch.as_tensor(x).to(cuda_device)
+                 for x in block(kind, wi, wj, seed=wi))
     before = conflict_kernel.block_launches
     got = conflict_block(*args, strict=strict)
     assert conflict_kernel.block_launches == before + 1

@@ -1,14 +1,13 @@
 """The port at any footprint width and any window, against the JAX package
 on the CPU.
 
-The CUDA conflict kernels stage footprints wider than one tile's shared
-memory in chunks, and the levels kernel takes any window; on the CPU the
-wrappers take the plain versions, which are held here against the
-reference's oracles past those old limits: conflict prefix matrices and
+The CUDA conflict kernels take any footprint width and the levels kernel
+any window; on the CPU the wrappers take the plain versions, which are
+held here against the reference's oracles past the first kernels' limits
+(192 slots of a footprint, W = 8192): conflict prefix matrices and
 cross-window blocks at 193 and 600 read slots, levels at W = 8193, and
-SIS on a graph whose hub has more neighbours than one stage holds,
-through both windowed engines, state and stats bit for bit. The chunk
-sizes the conflict binding picks are checked without a card."""
+SIS on a graph whose hub has more than 192 neighbours, through both
+windowed engines, state and stats bit for bit."""
 import numpy as np
 import pytest
 
@@ -27,7 +26,6 @@ from repro.kernels.levels.ref import wave_levels_ref as j_levels_ref  # noqa: E4
 from repro_torch import core as P  # noqa: E402
 from repro_torch import mabs as PM  # noqa: E402
 from repro_torch.bridge import state_to_numpy, topology_from_numpy  # noqa: E402
-from repro_torch.kernels.conflict import conflict as conflict_kernel  # noqa: E402
 from repro_torch.kernels.conflict.ops import (  # noqa: E402
     conflict_block,
     conflict_matrix,
@@ -73,25 +71,6 @@ def test_wide_conflict_plain_matches_reference(nr, strict, kind):
     want = np.asarray(want)
     assert 0 < want.sum() < want.size  # cells that conflict and cells not
     np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_staging_chunks():
-    """The narrow kernel while both sides' slots fit one stage (384 slots,
-    48 KB); past that, chunks of kr read and kw write slots whose stage
-    fits 192 slots a side."""
-    chunks = conflict_kernel.staging_chunks
-    assert chunks(1, 1, 1, 1) == (0, 0)
-    assert chunks(190, 2, 190, 2) == (0, 0)          # 2·32·192·4 = 48 KB
-    assert chunks(21, 2, 300, 61) == (0, 0)          # the block: one sum
-    assert chunks(191, 2, 191, 2) == (190, 2)
-    assert chunks(2358, 1, 2358, 1) == (191, 1)
-    assert chunks(600, 2, 1, 1) == (190, 2)
-    kr, kw = chunks(500, 500, 10, 10)                # wide writes too
-    assert (kr, kw) == (96, 96)
-    for nr_i, nw_i, nr_j, nw_j in ((193, 1, 193, 1), (4000, 300, 5, 1),
-                                   (7, 400, 9, 1)):
-        kr, kw = chunks(nr_i, nw_i, nr_j, nw_j)
-        assert 1 <= kw and 1 <= kr and kr + kw <= conflict_kernel.STAGE_SLOTS
 
 
 # ---------------------------------------------------------- levels window
