@@ -36,8 +36,11 @@ failure:
      Axelrod wave at W in {1, 37, 128, 4096} x F in {1, 3, 37, 128, 500}
      with masks of three densities, ties forced among the uniforms and
      rows with every feature equal; the SIRS wave at W in {1, 8, 37,
-     4096} x (s, k) in {(10, 6), (50, 14), (400, 14), (1000, 14), (25, 2)}
-     on rings of N in {4,000, 10^6}, subsets at both ends of the ring;
+     4096} x (s, k) in {(10, 6), (50, 14), (400, 14), (1000, 14), (25, 2),
+     (10, 2100)} on rings of N in {4,000, 4,003, 10^6}, random and all
+     infected,
+     subsets at both ends of the ring, and W = 1 at the first and the
+     last subset for s in {10, 25, 50};
      and the flash kernel against ``attention_ref`` (TF32 off) in float32
      and bfloat16 at the reference's five sweep shapes, smollm-360m's
      prefill (H 15, Hkv 5, D 64, T = S = 2048), danube's (H 32, Hkv 8,
@@ -52,12 +55,18 @@ failure:
      fails; and the wkv6 kernel against
      ``wkv6_ref`` in float32 and bfloat16 inputs at the reference's four
      sweep shapes, rwkv6-3b's prefill (B 1, H 40, T 2048, D 64), ragged
-     T in {1, 37, 129}, D = 128 and a decode step (B 8, T 1), each from
-     s0 = 0 and from a random s0, with decays near 1 and spread over
-     (0, 1) — o and the final state within WKV6_ATOL x the case's
-     largest output + WKV6_RTOL x |output|, the max error printed per
-     case; the tolerance must reject a recurrence without the u bonus
-     and one that decays S before the read, so a loose tolerance fails;
+     T in {1, 37, 129}, D = 128 and a decode step (B 8, T 1), D in {1,
+     33, 100}, D = 128 at T = 1, T in {8, 9, 15, 16, 17} (the kernels'
+     edges) and B·H in {41, 21}, each from s0 = 0 and from a random s0,
+     with decays near 1 and spread over (0, 1) — o and the final state
+     within WKV6_ATOL x the case's largest output + WKV6_RTOL x
+     |output|, the max error printed per case; the tolerance must reject
+     a recurrence without the u bonus and one that decays S before the
+     read, so a loose tolerance fails; and the state written in place
+     (``s_out=s0``, and into another tensor) under a partial, full and
+     empty ``commit`` mask and none, at a decode wave, a prefill chunk
+     and two odd shapes: committed rows within the same tolerance, the
+     others bit for bit as they were;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
      on the card, W = 4096, 2^22 tasks each (``--tasks`` cuts the task
@@ -148,15 +157,16 @@ failure:
      with its passes, and on random windows of density 0.3; the summary
      line holds SIS's conflict and levels times (the widest footprint of
      the Watts–Strogatz graph), and the wave kernels at F = 500 and
-     s = 1000; flash at smollm-360m's prefill shape in bf16 beside its
-     plain version and ``scaled_dot_product_attention`` (the library
+     s = 1000 (and SIRS at s = 50); flash at smollm-360m's prefill
+     shape in bf16 beside its plain version and
+     ``scaled_dot_product_attention`` (the library
      yardstick, which the port never calls), bound by max(bytes /
      3.35 TB/s, causal flops / 989 TFLOP/s), and in float32 beside the
      same two (printed, not in the summary line); wkv6 at rwkv6-3b's prefill shape (B 1, H 40, T 2048,
      D 64, bf16, s0 = 0) beside its plain version (no library call
      computes the recurrence), bound by max(bytes / 3.35 TB/s, flops /
      67 TFLOP/s, the float32 CUDA-core rate). The kernels line lists
-     all seven kernels.
+     all seven kernels, SIRS at both subset sizes.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -174,10 +184,16 @@ task writes id 0) and on a hot-id window (SIS's slots, ids over 100
 values, density ~0.3), each with its density; of the levels kernel on the
 voter and SIS windows, on a random window of density 0.3 and on a chain
 at W = 4096, and on serving-shaped windows of 8 (no conflict, a chain;
-also the host µs per call); and of the flash kernel at smollm-360m's
-prefill in bf16, with the port package under ``--src`` — so that the
-kernels of two trees can be compared in one call, each tree in its own
-process.
+also the host µs per call); of the flash kernel at smollm-360m's
+prefill in bf16; of wkv6 in bf16 at rwkv6-3b's one-shot prefill (B 1,
+H 40, T 2048), prefill chunk (T 128, with a state) and decode wave (B 8,
+T 1, with a state); of the SIRS wave on the first window's inputs at
+s = 50 and s = 1000 (n = 10^6 ring, k = 14, W = 4096) — each new one
+with its bound; the floor of the timing (a one-element ``add_``); and
+rwkv6-3b decode waves at full width (8 slots, half committed) under
+torch.profiler — device ms and kernels per wave, the wkv6 kernel's
+share — with the port package under ``--src``, so that the kernels of
+two trees can be compared in one call, each tree in its own process.
 
 ``--time-overlap`` runs none of the above: it prints the overlap path's
 wall ms per window for Axelrod (F = 3) and SIRS (s = 50) at n = 10^6,
@@ -251,8 +267,11 @@ AXELROD_WINDOWS = (1, 37, 128, 4096)
 AXELROD_FEATURES = (1, 3, 37, 128, 500)
 MASK_DENSITIES = (0.2, 0.7, 1.0)
 SIR_WINDOWS = (1, 8, 37, 4096)
-SIR_SHAPES = ((10, 6), (50, 14), (400, 14), (1000, 14), (25, 2))
-SIR_RINGS = (4_000, 1_000_000)
+SIR_SHAPES = ((10, 6), (50, 14), (400, 14), (1000, 14), (25, 2),
+              (10, 2100))  # the last past the kernel's threshold table
+SIR_RINGS = (4_000, 4_003, 1_000_000)
+#: W = 1 at the ring's first and last subset, s not a multiple of 4
+SIR_EDGE_SIZES = ((10, 6), (25, 2), (50, 14))
 SIR_RATES = {"p_si": 0.8, "p_ir": 0.1, "p_rs": 0.3}
 
 # the task-size phase: the widest tasks of the paper's sweeps
@@ -559,32 +578,48 @@ def check_axelrod_parity(torch, axelrod_wave) -> int:
 
 
 def check_sir_parity(torch, sir_wave) -> int:
-    """Random states (a third infected), subsets at both ends of the
-    ring among random ones."""
+    """Random states (a third infected) and an all-I ring (every
+    neighbour infected), on rings of N = 4,000, 4,003 (the wrapped
+    halo's second range misaligned) and 10^6; subsets at both ends of
+    the ring among random ones, and W = 1 at the first and at the last
+    subset for s in {10, 25, 50} (rows of uniforms not 16-byte
+    aligned)."""
     gen = torch.Generator().manual_seed(5)
     worst, cases = 0, 0
+
+    def case(states, subsets, n, s, k):
+        nonlocal worst, cases
+        u = torch.rand((subsets.numel(), s), generator=gen)
+        args = (states, subsets.cuda(), u.cuda())
+        kw = dict(n_agents=n, k=k, subset_size=s, **SIR_RATES)
+        got = sir_wave(*args, backend="cuda", **kw)
+        want = sir_wave(*args, backend="torch", **kw)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        worst = max(worst, err)
+        cases += 1
+        if err:
+            fail(f"sir_wave kernel != plain version at W={subsets.numel()} "
+                 f"s={s} k={k} N={n} subsets {subsets[:2].tolist()}...")
+
     for n in SIR_RINGS:
-        states = torch.randint(0, 3, (n,), generator=gen).to(
-            torch.int8).cuda()
-        for s, k in SIR_SHAPES:
-            for w in SIR_WINDOWS:
-                m = n // s
-                subsets = torch.randint(0, m, (w,), generator=gen,
-                                        dtype=torch.int32)
-                subsets[0] = m - 1 if w == 1 else 0
-                subsets[-1] = m - 1
-                u = torch.rand((w, s), generator=gen)
-                args = (states, subsets.cuda(), u.cuda())
-                kw = dict(n_agents=n, k=k, subset_size=s, **SIR_RATES)
-                got = sir_wave(*args, backend="cuda", **kw)
-                want = sir_wave(*args, backend="torch", **kw)
-                torch.cuda.synchronize()
-                err = int((got.int() - want.int()).abs().max())
-                worst = max(worst, err)
-                cases += 1
-                if err:
-                    fail(f"sir_wave kernel != plain version at W={w} s={s} "
-                         f"k={k} N={n}")
+        for fill in ("random", "all I"):
+            states = torch.randint(0, 3, (n,), generator=gen).to(torch.int8)
+            if fill == "all I":
+                states.fill_(1)
+            states = states.cuda()
+            for s, k in SIR_SHAPES:
+                for w in SIR_WINDOWS:
+                    m = n // s
+                    subsets = torch.randint(0, m, (w,), generator=gen,
+                                            dtype=torch.int32)
+                    subsets[0] = m - 1 if w == 1 else 0
+                    subsets[-1] = m - 1
+                    case(states, subsets, n, s, k)
+            for s, k in SIR_EDGE_SIZES:
+                for b in (0, n // s - 1):
+                    case(states, torch.tensor([b], dtype=torch.int32), n, s,
+                         k)
     log(f"parity sir_wave: {cases} cases bit-exact")
     return worst
 
@@ -1199,9 +1234,9 @@ def host_us(torch, fn, calls=500):
 
 
 def time_kernels(torch):
-    """Device ms of the conflict, block, levels and flash kernels on
-    inputs made from the seed, with whichever port package is first on
-    sys.path (see --time-kernels)."""
+    """Device ms of the conflict, block, levels, flash, wkv6 and SIRS
+    kernels on inputs made from the seed, with whichever port package is
+    first on sys.path (see --time-kernels)."""
     import repro_torch
     from repro_torch.kernels.conflict.ops import (
         conflict_block,
@@ -1209,7 +1244,9 @@ def time_kernels(torch):
     )
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.levels.ops import wave_levels
-    from repro_torch.mabs import SISModel, VoterModel
+    from repro_torch.kernels.sir.ops import sir_wave
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.mabs import SIRConfig, SIRModel, SISModel, VoterModel
     from repro_torch.topology import watts_strogatz
     from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
@@ -1290,7 +1327,73 @@ def time_kernels(torch):
                            99)
     row["flash_bf16_ms"] = cuda_event_ms(
         lambda: flash_attention(q, k, v, causal=True))
+    del q, k, v
+    # wkv6 in bf16 at rwkv6-3b's one-shot prefill, the engine's prefill
+    # chunk and decode wave (both with a carried state)
+    for name, (b, h, t, d), s0 in (
+            ("prefill", (1, 40, 2048, 64), False),
+            ("chunk", (1, 40, LM_PREFILL_CHUNK, 64), True),
+            ("decode", (LM_SLOTS, 40, 1, 64), True)):
+        args, state = wkv6_inputs(torch, b, h, t, d, torch.bfloat16, 98,
+                                  "spread", s0)
+        row[f"wkv6_{name}_ms"] = cuda_event_ms(
+            lambda: wkv6(*args, s0=state))
+        row[f"wkv6_{name}_bound_ms"] = bound_ms(*wkv6_cost(b, h, t, d,
+                                                           s0))[0]
+    # SIRS on the first wave's inputs of a real window at s = 50 (the
+    # overlap path's) and s = 1000 (the task-size phase's)
+    for s_sz in (50, WIDE_S):
+        model = SIRModel(SIRConfig(n_agents=N_NODES, k=14,
+                                   subset_size=s_sz))
+        args, kw, nbytes, ops, _ = sir_wave_case(torch, model)
+        row[f"sir_s{s_sz}_ms"] = cuda_event_ms(
+            lambda: sir_wave(*args, backend="cuda", **kw))
+        row[f"sir_s{s_sz}_bound_ms"] = bound_ms(nbytes, ops)[0]
+        del model, args
+    # the floor of this timing: a one-element add_, launch to launch
+    one = torch.zeros(1, device=DEVICE)
+    row["floor_add_ms"] = cuda_event_ms(lambda: one.add_(1))
+    row.update(rwkv_wave_profile(torch))
     log("kernel times: " + json.dumps(row))
+
+
+def rwkv_wave_profile(torch, waves: int = 10) -> dict:
+    """rwkv6-3b decode waves at full width (bf16 weights, LM_SLOTS slots,
+    every other slot committed, the time-mixes through the wkv6 kernel)
+    under torch.profiler: device ms and kernels per wave, the wkv6
+    kernel's share and the five costliest kernels — the state's writes
+    included."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    model = lm_model(torch, "bfloat16", "pallas", RWKV_ARCH)
+    params = model.init(SEED, device=DEVICE)
+    states = model.init_states(LM_SLOTS, LM_MAX_LEN)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEVICE)
+    commit = torch.arange(LM_SLOTS, device=DEVICE) % 2 == 0
+    for _ in range(3):
+        model.decode_step(params, tok, states, commit=commit)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(waves):
+            model.decode_step(params, tok, states, commit=commit)
+        torch.cuda.synchronize()
+    us = Counter()
+    n = 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and not e.is_user_annotation:
+            us[e.name] += e.device_time
+            n += 1
+    if not us:
+        fail("rwkv wave profile: the profiler saw no device time")
+    return {"rwkv_wave_device_ms": sum(us.values()) / waves / 1e3,
+            "rwkv_wave_kernels": n / waves,
+            "rwkv_wave_wkv6_ms": sum(t for k, t in us.items()
+                                     if "wkv6" in k) / waves / 1e3,
+            "rwkv_wave_top": [[k[:70], t / waves / 1e3]
+                              for k, t in us.most_common(5)]}
 
 
 def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
@@ -1623,33 +1726,73 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
     return [rows["conflict"], rows["levels"], rows["conflict_block"]]
 
 
+def first_wave(torch, model, rec):
+    """The mask of the first wave of window ``rec`` (W = WINDOW)."""
+    from repro_torch.core.records import wave_levels, window_conflicts
+
+    valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
+    return wave_levels(window_conflicts(model, rec, valid), valid) == 0
+
+
+def sir_wave_case(torch, model, state=None):
+    """The SIRS wave kernel's inputs on the first window of ``model``
+    (state from the seed unless given) and its cost: (args, kwargs,
+    bytes, ops, info). Bytes: the distinct halo states (1 byte), the
+    uniforms (4 bytes per agent), the subset ids (4 per row), the next
+    states (1); ops: a compare and an add per neighbour and agent."""
+    from repro_torch.utils import prng
+
+    if state is None:
+        state = model.init_state(prng.key(SEED + 1))
+    rec = model.create_tasks(prng.key(SEED), 0, WINDOW)
+    cfg = model.cfg
+    s_sz, k = cfg.subset_size, model.topology.ring_k
+    args = (state["states"], rec["subset"], model._draws(rec))
+    kw = dict(n_agents=cfg.n_agents, k=k, subset_size=s_sz,
+              p_si=cfg.p_si, p_ir=cfg.p_ir, p_rs=cfg.p_rs)
+    half = k // 2
+    halo = (rec["subset"].long()[:, None] * s_sz - half
+            + torch.arange(s_sz + 2 * half, device=DEVICE)) % cfg.n_agents
+    halo_bytes = int(torch.unique(halo).numel())
+    nbytes = halo_bytes + WINDOW * (5 * s_sz + 4)
+    ops = 2 * k * WINDOW * s_sz
+    info = {"s": s_sz, "k": k, "halo_bytes": halo_bytes,
+            "first_wave_tasks": int(first_wave(torch, model, rec).sum())}
+    return args, kw, nbytes, ops, info
+
+
+def wkv6_cost(b, h, t, d, s0):
+    """(bytes, ops) of one wkv6 call: r, k, v, w in bf16, o and s_final
+    (and s0) in float32; 5·D² + 5·D flops per step and head (r·S, the
+    decay and outer product of the update, the bonus)."""
+    nbytes = (4 * b * h * t * d * 2 + b * h * t * d * 4
+              + (2 if s0 else 1) * b * h * d * d * 4)
+    return nbytes, b * h * t * (5 * d * d + 5 * d)
+
+
 def wave_kernel_rows(torch, ov_models, wide, launches, errs):
     """The wave kernels on real windows of their models at W = 4096 —
     Axelrod at F = 3 and F = 500, SIRS at s = 50 and s = 1000: the
     window's first wave as the mask, the draws its recipes bind. The
-    summary rows hold the widest tasks."""
+    summary rows hold the widest tasks, and SIRS at s = 50 besides;
+    ``launches`` maps each row to its phase's count (SIRS at s = 50: the
+    overlap path, the widest tasks: the task-size phase)."""
     from repro_torch.kernels.axelrod.ops import axelrod_wave
     from repro_torch.kernels.sir.ops import sir_wave
     from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
-
-    def first_wave(model, rec):
-        from repro_torch.core.records import wave_levels, window_conflicts
-
-        valid = torch.ones(WINDOW, dtype=torch.bool, device=DEVICE)
-        return wave_levels(window_conflicts(model, rec, valid), valid) == 0
 
     cases = {"axelrod F=3": (ov_models["axelrod"], None),
              "sirs s=50": (ov_models["sirs"], None),
              **{k: v for k, v in wide.items()}}
     rows = {}
     for name, (model, state) in cases.items():
-        if state is None:
-            state = model.init_state(prng.key(SEED + 1))
-        rec = model.create_tasks(prng.key(SEED), 0, WINDOW)
-        draws = model._draws(rec)
-        mask = first_wave(model, rec)
         if name.startswith("axelrod"):
+            if state is None:
+                state = model.init_state(prng.key(SEED + 1))
+            rec = model.create_tasks(prng.key(SEED), 0, WINDOW)
+            draws = model._draws(rec)
+            mask = first_wave(torch, model, rec)
             f = model.cfg.n_features
             traits = state["traits"]
             args = (traits[rec["src"].long()], traits[rec["tgt"].long()],
@@ -1661,41 +1804,27 @@ def wave_kernel_rows(torch, ov_models, wide, launches, errs):
             nbytes = WINDOW * (16 * f + 6)
             # a compare, a select and a compare per feature
             ops = 3 * WINDOW * f
-            extra = {"F": f}
+            extra = {"F": f, "first_wave_tasks": int(mask.sum())}
         else:
-            cfg = model.cfg
-            s_sz, k = cfg.subset_size, model.topology.ring_k
-            args = (state["states"], rec["subset"], draws)
-            kw = dict(n_agents=cfg.n_agents, k=k, subset_size=s_sz,
-                      p_si=cfg.p_si, p_ir=cfg.p_ir, p_rs=cfg.p_rs)
+            args, kw, nbytes, ops, extra = sir_wave_case(torch, model,
+                                                         state)
             fn, kname = sir_wave, "sir_wave"
-            half = k // 2
-            halo = (rec["subset"].long()[:, None] * s_sz - half
-                    + torch.arange(s_sz + 2 * half, device=DEVICE)) \
-                % cfg.n_agents
-            # the distinct halo states (1 byte), the uniforms (4 bytes per
-            # agent), the subset ids (4 per row), the next states (1)
-            halo_bytes = int(torch.unique(halo).numel())
-            nbytes = halo_bytes + WINDOW * (5 * s_sz + 4)
-            # a compare and an add per neighbour and agent
-            ops = 2 * k * WINDOW * s_sz
-            extra = {"s": s_sz, "k": k, "halo_bytes": halo_bytes}
         ms = cuda_event_ms(lambda: fn(*args, backend="cuda", **kw))
         plain = cuda_event_ms(lambda: fn(*args, backend="torch", **kw),
                               reps=5)
-        row = kernel_row(kname, f"src/repro_torch/csrc/"
+        key = "sir_wave s=50" if name == "sirs s=50" else kname
+        row = kernel_row(key, f"src/repro_torch/csrc/"
                          f"{kname.split('_')[0]}.cu",
                          {"axelrod_wave":
                           "src/repro/kernels/axelrod/axelrod.py:70",
                           "sir_wave": "src/repro/kernels/sir/sir.py:71"
-                          }[kname], launches[kname], errs[kname], ms, plain,
+                          }[kname], launches[key], errs[kname], ms, plain,
                          nbytes, ops)
         log(f"kernel times {name} W={WINDOW}: " + json.dumps(
             {**extra, "ms": ms, "plain_ms": plain, "bytes": nbytes,
-             "ops": ops, "bound_ms": row["bound_ms"],
-             "first_wave_tasks": int(mask.sum())}))
-        rows[kname] = row  # the widest case comes last
-    return [rows["axelrod_wave"], rows["sir_wave"]]
+             "ops": ops, "bound_ms": row["bound_ms"]}))
+        rows[key] = row  # the widest case comes last
+    return [rows["axelrod_wave"], rows["sir_wave"], rows["sir_wave s=50"]]
 
 # ------------------------------------------------------- the LM serving path
 #: flash parity cases: (name, B, H, Hkv, T, S, D, causal, window)
@@ -1748,6 +1877,28 @@ WKV6_CASES = (
     ("ragged T=129", 1, 40, 129, 64),
     ("D=128", 1, 8, 256, 128),
     ("decode", 8, 40, 1, 64),
+    # the redesigned kernel's edges: D padded to 32 (1, 33, 100) and at
+    # its 128 limit; T at the short kernel's limit (8) and at +-1 of the
+    # staged tile of 16 steps; B·H = 41 and 21 (odd row counts)
+    ("D=1", 2, 3, 37, 1),
+    ("D=33", 2, 3, 37, 33),
+    ("D=100", 1, 4, 129, 100),
+    ("D=128 decode", 8, 4, 1, 128),
+    ("T=8", 1, 40, 8, 64),
+    ("T=9", 1, 40, 9, 64),
+    ("T=15", 1, 40, 15, 64),
+    ("T=16", 1, 40, 16, 64),
+    ("T=17", 1, 40, 17, 64),
+    ("B·H=41", 1, 41, 33, 64),
+    ("B·H=21", 3, 7, 3, 64),
+)
+#: in-place parity: (name, B, H, T, D), the state written into s0 itself
+#: and into another tensor under a commit mask
+WKV6_INPLACE_CASES = (
+    ("decode wave", 8, 40, 1, 64),
+    ("prefill chunk", 1, 40, 128, 64),
+    ("chunk B=3", 3, 5, 17, 33),
+    ("D=128", 2, 3, 9, 128),
 )
 #: std of r, k, v, u and a random s0; the decay logit log(-log w) is
 #: N(-5, 0.5) (w near 1: long memory) or N(0, 1) (w spread over (0, 1))
@@ -1949,6 +2100,66 @@ def check_wkv6_parity(torch) -> float:
     log(f"parity wkv6: {cases} cases within tolerance, both faults "
         f"rejected")
     return row_err
+
+
+def check_wkv6_inplace(torch) -> float:
+    """The kernel's in-place state contract on the card (the serving
+    path's: ``s_out=s0`` with the wave's ``commit``): at every
+    WKV6_INPLACE_CASES shape, float32 and bfloat16 inputs, with s0 as
+    the output and with another output tensor, under a partial, a full
+    and an empty mask and none — one launch per call, o and the committed
+    rows' state within WKV6_ATOL / WKV6_RTOL of ``wkv6_ref``, every other
+    row ``torch.equal`` to what the output held before. Returns the
+    largest error."""
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    no_tf32(torch)
+    worst, cases = 0.0, 0
+    for i, (name, b, h, t, d) in enumerate(WKV6_INPLACE_CASES):
+        masks = {"partial": torch.arange(b, device=DEVICE) % 2 == 0,
+                 "all": torch.ones(b, dtype=torch.bool, device=DEVICE),
+                 "none": torch.zeros(b, dtype=torch.bool, device=DEVICE),
+                 "no mask": None}
+        for dtype in (torch.float32, torch.bfloat16):
+            for alias in (True, False):
+                for mname, commit in masks.items():
+                    args, state = wkv6_inputs(torch, b, h, t, d, dtype,
+                                              50 + i, "spread", True)
+                    want_o, want_s = wkv6_ref(*args, s0=state)
+                    out = state if alias else torch.full_like(state, 7.0)
+                    before = out.clone()
+                    n0 = wkv6_kernel.launches
+                    o, sf = wkv6(*args, s0=state, s_out=out, commit=commit)
+                    torch.cuda.synchronize()
+                    rows = (torch.ones(b, dtype=torch.bool, device=DEVICE)
+                            if commit is None else commit)
+                    where = (f"{name} (B={b} H={h} T={t} D={d}) {dtype} "
+                             f"{'s_out=s0' if alias else 'other s_out'} "
+                             f"{mname}")
+                    if wkv6_kernel.launches != n0 + 1 or sf is not out:
+                        fail(f"wkv6 in place {where}: "
+                             f"{wkv6_kernel.launches - n0} launches, "
+                             f"returned state is s_out: {sf is out}")
+                    for what, got, want in (("o", o, want_o),
+                                            ("s", out[rows], want_s[rows])):
+                        if got.numel() == 0:
+                            continue
+                        limit = (WKV6_ATOL * float(want.abs().max())
+                                 + WKV6_RTOL * want.abs())
+                        diff = (got - want).abs()
+                        if bool((diff > limit).any()):
+                            fail(f"wkv6 in place {where} {what}: max abs "
+                                 f"err {float(diff.max())}")
+                        worst = max(worst, float(diff.max()))
+                    if not torch.equal(out[~rows], before[~rows]):
+                        fail(f"wkv6 in place {where}: uncommitted rows "
+                             f"were written")
+                    cases += 1
+    log(f"parity wkv6 in place: {cases} cases, committed rows within "
+        f"tolerance (max abs err {worst}), the others untouched")
+    return worst
 
 
 def lm_prompts(vocab):
@@ -2390,19 +2601,12 @@ def wkv6_row(torch, launches, err):
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.utils.timing import cuda_event_ms
 
-    def cost(b, h, t, d, s0):
-        """(bytes, ops): r, k, v, w in bf16, o and s_final (and s0) in
-        float32; 5·D² + 5·D flops per step and head."""
-        nbytes = (4 * b * h * t * d * 2 + b * h * t * d * 4
-                  + (2 if s0 else 1) * b * h * d * d * 4)
-        return nbytes, b * h * t * (5 * d * d + 5 * d)
-
     b, h, t, d = 1, 40, 2048, 64
     args, _ = wkv6_inputs(torch, b, h, t, d, torch.bfloat16, 99, "spread",
                           False)
     ms = cuda_event_ms(lambda: wkv6(*args))
     plain = cuda_event_ms(lambda: wkv6_ref(*args), reps=5)
-    nbytes, ops = cost(b, h, t, d, False)
+    nbytes, ops = wkv6_cost(b, h, t, d, False)
     row = kernel_row("wkv6", "src/repro_torch/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6/wkv6.py:133", launches, err,
                      ms, plain, nbytes, ops)
@@ -2418,7 +2622,7 @@ def wkv6_row(torch, launches, err):
         args, state = wkv6_inputs(torch, b, h, t, d, torch.bfloat16, 98,
                                   "spread", True)
         shape_ms = cuda_event_ms(lambda: wkv6(*args, s0=state))
-        nbytes, ops = cost(b, h, t, d, True)
+        nbytes, ops = wkv6_cost(b, h, t, d, True)
         shape_row = kernel_row("wkv6", "", "", 0, 0.0, shape_ms, None,
                                nbytes, ops)
         log(f"kernel times wkv6 rwkv6-3b {name} bf16 (B={b} T={t}): "
@@ -2453,8 +2657,8 @@ def main(argv=None) -> None:
                              f"(default 2^22 = {TOTAL_TASKS}; with "
                              "--time-overlap 2^20)")
     parser.add_argument("--time-kernels", action="store_true",
-                        help="only time the conflict, block, levels and "
-                             "flash kernels (device ms)")
+                        help="only time the conflict, block, levels, "
+                             "flash, wkv6 and SIRS kernels (device ms)")
     parser.add_argument("--time-overlap", action="store_true",
                         help="only time the overlap path of Axelrod and "
                              "SIRS (wall ms per window)")
@@ -2501,9 +2705,13 @@ def main(argv=None) -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(build_logs) or 'cached'})")
     for name, text in build_logs.items():
+        entry = ""  # the kernel and template arguments of the entry, mangled
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                at = line.find("_kernel")
+                entry = line[max(at - 12, 0):at + 28].split("'")[0]
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name} {entry}: {line.strip()}")
 
     t0 = time.perf_counter()
     errs = {"conflict": check_conflict_parity(torch, conflict_matrix),
@@ -2513,6 +2721,7 @@ def main(argv=None) -> None:
             "sir_wave": check_sir_parity(torch, sir_wave),
             "flash_attention": check_flash_parity(torch),
             "wkv6": check_wkv6_parity(torch)}
+    check_wkv6_inplace(torch)
     log(f"parity: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2568,7 +2777,11 @@ def main(argv=None) -> None:
     total["levels"] += (lm_launches["wave_levels"]
                         + rwkv_launches["wave_levels"])
     rows = kernel_rows(torch, models, ov_models, total, errs)
-    rows += wave_kernel_rows(torch, ov_models, wide, total, errs)
+    rows += wave_kernel_rows(
+        torch, ov_models, wide,
+        {"axelrod_wave": total["axelrod_wave"],
+         "sir_wave": wide_launches["sir_wave"],
+         "sir_wave s=50": ov_launches["sir_wave"]}, errs)
     rows.append(wkv6_row(torch, rwkv_launches["wkv6"], errs["wkv6"]))
     rows.append(flash_row(torch, lm_launches["flash_attention"],
                           errs["flash_attention"]))

@@ -1,10 +1,11 @@
 """Binding of the CUDA SIRS wave kernel (``csrc/sir.cu``).
 
 Port of ``repro/kernels/sir/sir.py::sir_wave_pallas`` together with its
-wrapper's halo gather: one CTA per task row stages the ring halo of its
-subset in shared memory and updates the subset's agents (see the
-source's note for the design and what bounds it). ``launches`` counts the
-launches of this wrapper; nothing else changes it.
+wrapper's halo gather: rows packed by subset size, each row's threads
+stage the ring halo of its subset in shared memory and update 4 or 16
+consecutive agents each with a sliding neighbour count (see the source's
+note for the design and what bounds it). ``launches`` counts the launches
+of this wrapper; nothing else changes it.
 """
 from __future__ import annotations
 

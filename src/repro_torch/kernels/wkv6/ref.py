@@ -10,6 +10,12 @@ per-channel decay w_t ∈ (0,1)^D and bonus u ∈ R^D:
 
 The reference scans the steps per head under two ``vmap``s; here one
 Python loop over T is vectorised over [B, H], in float32 throughout.
+
+Unlike the reference, which returns a new state, ``wkv6_ref`` may write
+the final state into a given tensor ``s_out`` (``s0`` itself included),
+and under a ``commit`` mask ([B] bool) only into the committed batch
+rows: the serving engine's masked, in-place state update. The CUDA
+kernel keeps the same contract.
 """
 from __future__ import annotations
 
@@ -28,11 +34,38 @@ def wkv6_decode_step(s, r, k, v, w, u):
     return o, s_next
 
 
-def wkv6_ref(r, k, v, w, u, *, s0=None):
-    """r, k, v, w: [B, H, T, D]; u: [H, D]; s0 (optional) [B, H, D, D].
+def write_state(s_out: torch.Tensor, s: torch.Tensor,
+                commit: torch.Tensor | None) -> torch.Tensor:
+    """``s_out`` <- ``s`` in place ([B, ...] float32); with ``commit`` ([B]
+    bool) only the committed rows, the others keep their values. Returns
+    ``s_out``."""
+    if s_out.dtype != torch.float32:
+        raise TypeError(f"s_out has dtype {s_out.dtype}, expected "
+                        f"torch.float32")
+    if s_out.shape != s.shape:
+        raise ValueError(f"s_out has shape {tuple(s_out.shape)}, expected "
+                         f"{tuple(s.shape)}")
+    if commit is not None:
+        s = torch.where(commit.view((-1,) + (1,) * (s.dim() - 1)), s, s_out)
+    return s_out.copy_(s)
 
-    Returns (o [B, H, T, D] f32, s_final [B, H, D, D] f32).
+
+def check_commit(s_out, commit) -> None:
+    """A ``commit`` mask names rows of ``s_out``: it needs one."""
+    if commit is not None and s_out is None:
+        raise ValueError("commit needs s_out: it names the rows of s_out "
+                         "to write")
+
+
+def wkv6_ref(r, k, v, w, u, *, s0=None, s_out=None, commit=None):
+    """r, k, v, w: [B, H, T, D]; u: [H, D]; s0 (optional) [B, H, D, D];
+    s_out (optional) [B, H, D, D] float32, the final state's destination
+    (may be ``s0``); commit (optional, with s_out) [B] bool.
+
+    Returns (o [B, H, T, D] f32, s_final [B, H, D, D] f32); s_final is
+    s_out when one is given, its uncommitted rows unchanged.
     """
+    check_commit(s_out, commit)
     b, h, t, d = r.shape
     if s0 is None:
         s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
@@ -42,4 +75,6 @@ def wkv6_ref(r, k, v, w, u, *, s0=None):
     for i in range(t):
         o[:, :, i], s = wkv6_decode_step(s, r[:, :, i], k[:, :, i],
                                          v[:, :, i], w[:, :, i], u)
+    if s_out is not None:
+        s = write_state(s_out, s, commit)
     return o, s

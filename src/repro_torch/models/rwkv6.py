@@ -22,7 +22,10 @@ State (``{"last": [B, 1, D], "s": [B, H, D, D] f32}`` for the time-mix,
 ``{"last"}`` for the channel-mix) is O(H·D²) per layer. Unlike the
 reference, which returns new state arrays, the port writes the state's
 tensors **in place**, and under ``commit`` ([B] bool) only the committed
-rows: the serving engine's masked decode wave.
+rows: the serving engine's masked decode wave. The WKV route writes ``s``
+itself (``s_out=s0``, with the mask); on "pallas" the kernel stores the
+committed rows' final state and leaves the others untouched, so the
+state makes no extra pass through device memory.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import check_commit, write_state, wkv6_ref
 from repro_torch.models.layers import Dense, _param, dense, dtype_of, \
     init_dense
 
@@ -111,12 +114,16 @@ def _write(dst: torch.Tensor, new: torch.Tensor,
     dst.copy_(new)
 
 
-def wkv6_chunked(r, k, v, w, u, *, s0=None, chunk: int = 64):
+def wkv6_chunked(r, k, v, w, u, *, s0=None, s_out=None, commit=None,
+                 chunk: int = 64):
     """The reference's ``wkv6_chunked_jnp``: the TPU kernel's chunked math,
     vectorised over [B, H], a Python loop where the reference scans.
 
     r/k/v/w [B, H, T, D]; u [H, D] -> (o [B,H,T,D] f32, s [B,H,D,D] f32).
+    ``s_out`` and ``commit`` as for ``kernels/wkv6/ops.py::wkv6``: the
+    final state written in place, only into the committed rows.
     """
+    check_commit(s_out, commit)
     b, h, t, d = r.shape
     L = min(chunk, t)
     while t % L:
@@ -146,6 +153,8 @@ def wkv6_chunked(r, k, v, w, u, *, s0=None, chunk: int = 64):
         S = (torch.exp(tot)[:, :, :, None] * S
              + torch.einsum("bhlk,bhlv->bhkv", k_dec, vc))
         outs.append(o)
+    if s_out is not None:
+        S = write_state(s_out, S, commit)
     return torch.cat(outs, dim=2), S
 
 
@@ -180,13 +189,11 @@ def rwkv_time_mix(p: TimeMix, x, cfg, *, state=None, impl="chunked",
     rh, kh, vh, wh = split(r), split(k), split(v), split(w.to(x.dtype))
     u = p.u.float()
 
-    s0 = None if state is None else state["s"]
-    if impl == "pallas":
-        o, s_fin = wkv6(rh, kh, vh, wh, u, s0=s0)
-    elif impl == "ref":
-        o, s_fin = wkv6_ref(rh, kh, vh, wh, u, s0=s0)
-    else:
-        o, s_fin = wkv6_chunked(rh, kh, vh, wh, u, s0=s0)
+    # the state is read and written in place, only the commit rows
+    kw = {} if state is None else dict(s0=state["s"], s_out=state["s"],
+                                       commit=commit)
+    wkv = {"pallas": wkv6, "ref": wkv6_ref}.get(impl, wkv6_chunked)
+    o, _ = wkv(rh, kh, vh, wh, u, **kw)
 
     # per-head groupnorm (population variance, as jnp.var)
     mean = o.mean(dim=-1, keepdim=True)
@@ -199,7 +206,6 @@ def rwkv_time_mix(p: TimeMix, x, cfg, *, state=None, impl="chunked",
     out = dense(p.wo, o)
     if state is not None:
         _write(state["last"], x[:, -1:], commit)
-        _write(state["s"], s_fin, commit)
     return out
 
 

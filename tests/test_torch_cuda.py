@@ -364,7 +364,9 @@ def test_axelrod_kernel_matches_plain(cuda_device, w, f, omega):
 
 @pytest.mark.parametrize("w,s_sz,k,n", [(1, 10, 6, 40), (37, 50, 14, 4000),
                                         (8, 1000, 14, 1_000_000),
-                                        (4096, 25, 2, 4000)])
+                                        (4096, 25, 2, 4000),
+                                        # a window past the threshold table
+                                        (37, 10, 2100, 5000)])
 def test_sir_kernel_matches_plain(cuda_device, w, s_sz, k, n):
     gen = torch.Generator().manual_seed(w + s_sz)
     states = torch.randint(0, 3, (n,), generator=gen).to(torch.int8)
@@ -372,6 +374,31 @@ def test_sir_kernel_matches_plain(cuda_device, w, s_sz, k, n):
                             dtype=torch.int32)
     subsets[0], subsets[-1] = 0, n // s_sz - 1  # both ends wrap
     u = torch.rand((w, s_sz), generator=gen)
+    args = tuple(x.to(cuda_device) for x in (states, subsets, u))
+    kw = dict(n_agents=n, k=k, subset_size=s_sz, p_si=.8, p_ir=.1, p_rs=.3)
+    before = sir_kernel.launches
+    got = sir_wave(*args, **kw)
+    assert sir_kernel.launches == before + 1
+    assert torch.equal(got, sir_wave(*args, backend="torch", **kw))
+
+
+@pytest.mark.parametrize("fill", ["random", "all I"])
+@pytest.mark.parametrize("end", ["first", "last"])
+@pytest.mark.parametrize("s_sz,k", [(10, 6), (25, 2), (50, 14)])
+@pytest.mark.parametrize("n", [4000, 4003])
+def test_sir_kernel_matches_plain_at_the_ring_ends(cuda_device, n, s_sz, k,
+                                                   end, fill):
+    """W = 1 at the first or the last subset (the halo crosses the ring's
+    end; at N = 4003 its second range is not 16-byte aligned), s not a
+    multiple of 4 (rows of uniforms not 16-byte aligned), random states
+    or every agent infected."""
+    gen = torch.Generator().manual_seed(n + s_sz)
+    states = torch.randint(0, 3, (n,), generator=gen).to(torch.int8)
+    if fill == "all I":
+        states.fill_(1)
+    b = 0 if end == "first" else n // s_sz - 1
+    subsets = torch.tensor([b], dtype=torch.int32)
+    u = torch.rand((1, s_sz), generator=gen)
     args = tuple(x.to(cuda_device) for x in (states, subsets, u))
     kw = dict(n_agents=n, k=k, subset_size=s_sz, p_si=.8, p_ir=.1, p_rs=.3)
     before = sir_kernel.launches
@@ -575,6 +602,11 @@ WKV6_CASES = [  # b, h, t, d
     (2, 3, 37, 64),
     (8, 4, 1, 64),                            # a decode step
     (1, 2, 129, 96),
+    # the kernels' edges: D padded to 32 and at its limit, T at the short
+    # kernel's limit (8) and at +-1 of the 16-step tile, odd B·H
+    (2, 3, 37, 1), (2, 3, 37, 33), (1, 4, 129, 100), (8, 4, 1, 128),
+    (1, 40, 8, 64), (1, 40, 9, 64), (1, 40, 15, 64), (1, 40, 16, 64),
+    (1, 40, 17, 64), (1, 41, 33, 64), (3, 7, 3, 64),
 ]
 #: float32 sums of D products in another order than the plain version's
 WKV6_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -616,6 +648,40 @@ def test_wkv6_kernel_matches_plain(cuda_device, dtype, s0, near_one, b, h,
     torch.testing.assert_close(sf, want_s, **WKV6_TOL)
 
 
+@pytest.mark.parametrize("mask", ["partial", "all", "none", None])
+@pytest.mark.parametrize("alias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d", [(8, 4, 1, 64), (3, 5, 17, 33),
+                                     (2, 3, 130, 128)])
+def test_wkv6_kernel_writes_state_in_place(cuda_device, b, h, t, d, dtype,
+                                           alias, mask):
+    """``s_out`` (s0 itself, or another tensor) under a ``commit`` mask:
+    one launch; the committed rows' state equals the plain version's
+    within tolerance, the other rows are exactly what s_out held."""
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    args, state = _wkv6_inputs(b, h, t, d, dtype, cuda_device, s0=True,
+                               near_one=False)
+    commit = {"partial": torch.arange(b) % 2 == 1,
+              "all": torch.ones(b, dtype=torch.bool),
+              "none": torch.zeros(b, dtype=torch.bool), None: None}[mask]
+    commit = None if commit is None else commit.to(cuda_device)
+    rows = (torch.ones(b, dtype=torch.bool, device=cuda_device)
+            if commit is None else commit)
+    want_o, want_s = wkv6_ref(*args, s0=state)
+    out = state if alias else torch.full_like(state, 7.0)
+    before = out.clone()
+    n0 = wkv6_kernel.launches
+    o, sf = wkv6(*args, s0=state, s_out=out, commit=commit)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == n0 + 1 and sf is out
+    torch.testing.assert_close(o, want_o, **WKV6_TOL)
+    torch.testing.assert_close(out[rows], want_s[rows], **WKV6_TOL)
+    assert torch.equal(out[~rows], before[~rows])
+
+
 def test_wkv6_kernel_refuses_what_it_does_not_take(cuda_device):
     from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
 
@@ -635,6 +701,15 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="s0"):
         wkv6_cuda(*rkvw(4, 16), u, n_heads=2,
                   s0=torch.zeros((2, 16, 8), device=cuda_device))
+    s = torch.zeros((2, 16, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="s_out"):
+        wkv6_cuda(*rkvw(4, 16), u, n_heads=2, s_out=s[:, :8])
+    with pytest.raises(ValueError, match="commit needs s_out"):
+        wkv6_cuda(*rkvw(4, 16), u, n_heads=2,
+                  commit=torch.ones(1, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(TypeError, match="commit"):
+        wkv6_cuda(*rkvw(4, 16), u, n_heads=2, s_out=s,
+                  commit=torch.ones(1, dtype=torch.int32, device=cuda_device))
 
 
 def test_rwkv_serving_on_card_matches_sequential_through_wkv6(cuda_device,
