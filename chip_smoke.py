@@ -69,7 +69,7 @@ failure:
      others bit for bit as they were;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
-     on the card, W = 4096, 2^22 tasks each (``--tasks`` cuts the task
+     on the card, W = 4096, 2^21 tasks each (``--tasks`` cuts the task
      count of both paths, never n or W) — with the kernel launch
      counters set to 0 just before each model's run and read just
      after; each kernel must have launched once per window. Then, on
@@ -80,7 +80,7 @@ failure:
      levels and waves (host clock, each step fenced by a synchronize),
      and profiles 16 more (torch.profiler) for the device's busy share;
   6. drives the overlap path — ``run_engine(engine="wavefront_overlap")``
-     at W = 4096 and 2^22 tasks on four models built on the
+     at W = 4096 and 2^21 tasks on four models built on the
      card: voter and SIS on the graph above, Axelrod (n = 10^6, F = 3,
      q = 3, omega = 0.95, complete mixing) and SIRS (n = 10^6 on the ring
      of degree 14, subsets of 50). The counters are set to 0 before each
@@ -121,7 +121,30 @@ failure:
      version under both rules, their ms beside their bounds; then voter
      at W = 16384 for two windows
      through both engines against the oracle;
- 11. the LM serving path at smollm-360m's full width (32 layers,
+ 11. the sharded engines (``torch.distributed``): (a) at world size 1
+     under NCCL (a one-rank default group on a FileStore under build/),
+     ``sharded`` and ``sharded_overlap`` on SIS (the graph above) and
+     SIRS (the phase-6 ring, s = 50) at n = 10^6, W = 4096 and 2^20 tasks
+     (``--tasks`` cuts it), each against ``wavefront`` /
+     ``wavefront_overlap`` on the card with the same seed and window:
+     the final state bit for bit, the schedule stats equal, conflict and
+     levels launched once per window, the block kernel once per
+     boundary, the SIRS wave kernel once per ``execute_wave``, n_devices
+     1, the collective call sites' byte count equal to
+     ``comm_bytes_total``; tasks/s of both; a fenced split of 16 windows
+     (schedule, split layout, gathers with their collective, scatters,
+     waves, the rest); the host syncs per window, more than 19 per 16
+     windows of ``sharded_overlap`` failing. (b) Four ``gloo`` ranks on
+     the one card, carrying CUDA tensors (NCCL puts no two ranks on one
+     GPU), spawned by the script: the four engines on voter, SIS,
+     Axelrod (F = 3) and SIRS (s = 50) at n = 10^6, W = 4096 for 8
+     windows; every rank's state equal to its ``wavefront`` run on the
+     card, the stats equal across ranks, each rank's byte count equal to
+     ``comm_bytes_total``; a rank's non-zero exit or a 400 s timeout
+     fails. Prints the comm ladder per model (``comm_modes``,
+     ``per_wave_comm_bytes``, ``window_halo_bytes``, ``full_state_bytes``,
+     ``comm_reduction_vs_window_halo``);
+ 12. the LM serving path at smollm-360m's full width (32 layers,
      d_model 960, vocab 49152), random weights from the seed: 16 requests
      with prompt lengths 64-1536 drawn from the seed, 64 new tokens each,
      8 slots, max_len 2048, prefill chunks of 128. Checked (float32
@@ -152,7 +175,7 @@ failure:
      once per iteration; the one-shot prefill at T = 2048 through
      "pallas" against "chunked" — last-token logits and layer 0's state
      within RWKV_PREFILL_TOL. Timed (bf16): as for smollm;
- 12. times each kernel at W = 4096 on real windows (CUDA events, median
+ 13. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound, the levels kernel
      with its passes, and on random windows of density 0.3; the summary
      line holds SIS's conflict and levels times (the widest footprint of
@@ -218,7 +241,7 @@ N_NODES = 1_000_000
 DEGREE = 10
 REWIRE = 0.1
 WINDOW = 4096
-TOTAL_TASKS = 1 << 22
+TOTAL_TASKS = 1 << 21
 CHECK_WINDOWS = 8
 SEED = 0
 DEVICE = "cuda"
@@ -1618,6 +1641,322 @@ def drive_big_window(torch, models):
     log(f"window {w}: equals the oracle " + json.dumps(row))
 
 
+# ------------------------------------------------------- the sharded phase
+#: (a): tasks of each world-1 NCCL run; (b): windows of each four-rank run
+SHARDED_TASKS = 1 << 20
+SHARDED_RANKS = 4
+SHARDED_RANK_WINDOWS = 8
+SHARDED_RANK_TIMEOUT_S = 400
+SHARDED_ENGINES = ("sharded", "sharded_window_halo", "sharded_replicated",
+                   "sharded_overlap")
+#: the stats that depend only on the schedule, equal across engines
+SCHEDULE_KEYS = ("total_tasks", "n_windows", "total_waves",
+                 "mean_parallelism", "overlap", "n_boundaries",
+                 "mean_overlap_depth", "max_overlap_depth",
+                 "overlap_tasks_early", "carry_frontier_mean",
+                 "carry_frontier_max")
+LADDER_KEYS = ("comm_modes", "per_wave_comm_bytes", "window_halo_bytes",
+               "full_state_bytes", "comm_reduction_vs_window_halo")
+
+
+def drive_sharded_nccl(torch, models, total_tasks):
+    """(a) World size 1 under NCCL: ``sharded`` and ``sharded_overlap`` on
+    SIS and SIRS against ``wavefront`` / ``wavefront_overlap`` on the
+    card (same seed and window): state, schedule stats, kernel launches,
+    n_devices, the call sites' byte count; tasks/s of both; then the
+    host syncs per window. Returns the summed launches."""
+    import torch.distributed as dist
+
+    from repro_torch.core import ProtocolConfig, run_engine
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.conflict import conflict as conflict_kernel
+    from repro_torch.kernels.levels import levels as levels_kernel
+    from repro_torch.utils import prng
+
+    cfg = ProtocolConfig(window=WINDOW)
+    launches = {"conflict": 0, "levels": 0, "conflict_block": 0,
+                "axelrod_wave": 0, "sir_wave": 0}
+    store = ROOT / "build" / "sharded_nccl_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        # the communicator is made at the first collective: not timed
+        dist.all_reduce(torch.zeros(1, device=DEVICE))
+        torch.cuda.synchronize()
+        for name in ("sis", "sirs"):
+            model = models[name]
+            state0 = model.init_state(prng.key(SEED + 1))
+            for engine, plain in (("sharded", "wavefront"),
+                                  ("sharded_overlap", "wavefront_overlap")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wf, wf_stats = run_engine(model, state0, total_tasks,
+                                          seed=SEED, config=cfg,
+                                          engine=plain)
+                torch.cuda.synchronize()
+                wf_s = time.perf_counter() - t0
+                eng = make_engine(engine, model, window=WINDOW)
+                if eng.agents.group is not dist.group.WORLD:
+                    fail(f"{engine} {name}: the engine did not take the "
+                         "default NCCL group")
+                with counting_waves(model) as calls:
+                    conflict_kernel.launches = 0
+                    conflict_kernel.block_launches = 0
+                    levels_kernel.launches = 0
+                    for _, kernel in wave_kernels().values():
+                        kernel.launches = 0
+                    t0 = time.perf_counter()
+                    out, stats = eng.run(state0, total_tasks, seed=SEED)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                nw = stats["n_windows"]
+                n = {"conflict": conflict_kernel.launches,
+                     "levels": levels_kernel.launches,
+                     "conflict_block": conflict_kernel.block_launches}
+                want = {"conflict": nw, "levels": nw, "conflict_block":
+                        stats["n_boundaries"] if stats["overlap"] else 0}
+                if n != want:
+                    fail(f"{engine} {name}: launches {n}, expected {want}")
+                n.update(check_wave_launches(f"{engine} {name}", name,
+                                             calls[0]))
+                for k, v in n.items():
+                    launches[k] += v
+                if not states_equal(out, wf):
+                    fail(f"{engine} {name} != {plain} on the card")
+                sched = {k: stats.get(k) for k in SCHEDULE_KEYS}
+                if sched != {k: wf_stats.get(k) for k in SCHEDULE_KEYS}:
+                    fail(f"{engine} {name}: schedule stats {stats} != "
+                         f"{plain}'s {wf_stats}")
+                if stats["n_devices"] != 1:
+                    fail(f"{engine} {name}: n_devices {stats['n_devices']}")
+                if eng.agents.comm_bytes != stats["comm_bytes_total"]:
+                    fail(f"{engine} {name}: the call sites counted "
+                         f"{eng.agents.comm_bytes} bytes, the stats say "
+                         f"{stats['comm_bytes_total']}")
+                row = {"tasks": total_tasks, "n_windows": nw,
+                       "total_waves": stats["total_waves"],
+                       "seconds": secs, "tasks_per_s": total_tasks / secs,
+                       "wall_ms_per_window": secs / nw * 1e3,
+                       f"{plain}_seconds": wf_s,
+                       f"{plain}_tasks_per_s": total_tasks / wf_s,
+                       f"{plain}_wall_ms_per_window": wf_s / nw * 1e3,
+                       "collectives": eng.agents.collectives,
+                       **{k: stats[k] for k in LADDER_KEYS}}
+                log(f"sharded world 1 nccl {engine} {name}: "
+                    + json.dumps(row))
+        sync_models = {k: models[k] for k in ("sis", "sirs")}
+        sharded_breakdown(torch, sync_models)
+        count_syncs(torch, sync_models, "sharded")
+        syncs = count_syncs(torch, sync_models, "sharded_overlap")
+        worst = max(syncs.values())
+        if worst > OVERLAP_SYNCS_MAX:
+            fail(f"sharded_overlap syncs the host {worst} times per window, "
+                 f"more than {OVERLAP_SYNCS_MAX}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def sharded_breakdown(torch, models, n_windows: int = 16):
+    """Host-clock split of 16 ``sharded`` windows per model at world size
+    1, each step fenced by a synchronize before and after (so the sum
+    exceeds an unfenced window): the schedule (creation, record check,
+    levels, the row contracts), the split layout (``wave_halo_split``),
+    the gathers (row gather, pack, owner mask and the collective:
+    ``wave_halo_gather``), the scatters into the scratch
+    (``halo_scatter``), the waves (``execute_wave``) and the rest (owner
+    masks, block refresh and slice, the host copy)."""
+    import repro_torch.engine.sharded as sharded_mod
+    from repro_torch.engine import make_engine
+    from repro_torch.utils import prng
+
+    steps = dict.fromkeys(("schedule", "split", "gather", "scatter",
+                           "execute_wave"), 0.0)
+    calls = dict.fromkeys(steps, 0)
+
+    def fenced(key, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps[key] += time.perf_counter() - t0
+            calls[key] += 1
+            return out
+        return timed
+
+    names = {"split": "wave_halo_split", "gather": "wave_halo_gather",
+             "scatter": "halo_scatter"}
+    saved = {k: getattr(sharded_mod, n) for k, n in names.items()}
+    try:
+        for k, n in names.items():
+            setattr(sharded_mod, n, fenced(k, saved[k]))
+        for name, model in models.items():
+            eng = make_engine("sharded", model, window=WINDOW)
+            eng._schedule = fenced("schedule", eng._schedule)
+            model.execute_wave = fenced("execute_wave", model.execute_wave)
+            state0 = model.init_state(prng.key(SEED + 1))
+            for k in steps:
+                steps[k], calls[k] = 0.0, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                _, stats = eng.run(state0, n_windows * WINDOW, seed=SEED)
+                torch.cuda.synchronize()
+            finally:
+                del model.execute_wave
+            wall = time.perf_counter() - t0
+            waves = stats["total_waves"]
+            row = {f"{k}_ms": v / n_windows * 1e3 for k, v in steps.items()}
+            row["rest_ms"] = (wall - sum(steps.values())) / n_windows * 1e3
+            row["wall_ms"] = wall / n_windows * 1e3
+            row["waves_per_window"] = waves / n_windows
+            row["gather_ms_per_wave"] = steps["gather"] / waves * 1e3
+            row["gathers"] = calls["gather"]
+            row["scatters"] = calls["scatter"]
+            log(f"sharded breakdown {name} W={WINDOW} (fenced, world 1 "
+                "nccl): " + json.dumps(row))
+    finally:
+        for k, n in names.items():
+            setattr(sharded_mod, n, saved[k])
+
+
+def sharded_rank(rank, store, out_dir, tasks):
+    """(b) One of SHARDED_RANKS gloo ranks on the one card (spawned by
+    ``drive_sharded_ranks``): the four engines on voter, SIS, Axelrod
+    F = 3 and SIRS s = 50 at n = 10^6, each against this rank's
+    ``wavefront`` run on the card. Writes ``sharded_rank<r>.json``, or
+    ``sharded_rank<r>.err`` and exits 1."""
+    out_dir = Path(out_dir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        torch.set_num_threads(1)  # four ranks share the host's cores
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, SHARDED_RANKS), rank=rank,
+            world_size=SHARDED_RANKS)
+        try:
+            res = _sharded_rank_runs(torch, tasks)
+        finally:
+            dist.destroy_process_group()
+        (out_dir / f"sharded_rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        import traceback
+
+        (out_dir / f"sharded_rank{rank}.err").write_text(
+            traceback.format_exc())
+        sys.exit(1)
+
+
+def _sharded_rank_runs(torch, tasks):
+    from repro_torch.core import ProtocolConfig, run_engine
+    from repro_torch.engine import make_engine
+    from repro_torch.mabs import (
+        AxelrodConfig,
+        AxelrodModel,
+        SIRConfig,
+        SIRModel,
+        SISModel,
+        VoterModel,
+    )
+    from repro_torch.topology import watts_strogatz
+    from repro_torch.utils import prng
+
+    topo = watts_strogatz(N_NODES, DEGREE, REWIRE, prng.key(SEED))
+    models = {"voter": VoterModel(topo), "sis": SISModel(topo),
+              "axelrod": AxelrodModel(AxelrodConfig(
+                  n_agents=N_NODES, n_features=3, q=3, omega=0.95)),
+              "sirs": SIRModel(SIRConfig(n_agents=N_NODES, k=14,
+                                         subset_size=50))}
+    res = {}
+    for name, model in models.items():
+        state0 = model.init_state(prng.key(SEED + 1))
+        wf, _ = run_engine(model, state0, tasks, seed=SEED,
+                           config=ProtocolConfig(window=WINDOW))
+        res[name] = {}
+        for engine in SHARDED_ENGINES:
+            eng = make_engine(engine, model, window=WINDOW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, stats = eng.run(state0, tasks, seed=SEED)
+            torch.cuda.synchronize()
+            res[name][engine] = {
+                "stats": stats, "equal": states_equal(out, wf),
+                "comm_bytes": eng.agents.comm_bytes,
+                "collectives": eng.agents.collectives,
+                "world_size": eng.agents.world_size,
+                "seconds": time.perf_counter() - t0}
+    return res
+
+
+def drive_sharded_ranks(torch, tasks):
+    """(b) Four gloo ranks on the one card, carrying CUDA tensors (NCCL
+    puts no two ranks on one GPU): every rank's state equals its
+    ``wavefront`` run, the stats are equal across ranks, each rank's call
+    sites count ``comm_bytes_total``; prints the comm ladder per model."""
+    import torch.multiprocessing as mp
+
+    out_dir = ROOT / "build" / "sharded_ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, str(out_dir / "store"), str(out_dir),
+                               tasks))
+             for r in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for r, p in enumerate(procs):
+            p.join(max(SHARDED_RANK_TIMEOUT_S - (time.perf_counter() - t0),
+                       1))
+            if p.is_alive():
+                fail(f"sharded rank {r} did not finish in "
+                     f"{SHARDED_RANK_TIMEOUT_S} s")
+            if p.exitcode != 0:
+                err = out_dir / f"sharded_rank{r}.err"
+                fail(f"sharded rank {r} exited {p.exitcode}: "
+                     + (err.read_text() if err.exists() else ""))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    ranks = [json.loads((out_dir / f"sharded_rank{r}.json").read_text())
+             for r in range(SHARDED_RANKS)]
+    for name, engines in ranks[0].items():
+        ladder = {}
+        for engine, res in engines.items():
+            for r, rr in enumerate(ranks):
+                got = rr[name][engine]
+                what = f"{SHARDED_RANKS} ranks {engine} {name} rank {r}"
+                if not got["equal"]:
+                    fail(f"{what}: state != wavefront on the card")
+                if got["stats"] != res["stats"]:
+                    fail(f"{what}: stats {got['stats']} != rank 0's "
+                         f"{res['stats']}")
+                if got["world_size"] != SHARDED_RANKS or \
+                        got["stats"]["n_devices"] != SHARDED_RANKS:
+                    fail(f"{what}: world size {got['world_size']}")
+                if got["comm_bytes"] != got["stats"]["comm_bytes_total"]:
+                    fail(f"{what}: the call sites counted "
+                         f"{got['comm_bytes']} bytes, the stats say "
+                         f"{got['stats']['comm_bytes_total']}")
+            ladder[engine] = {
+                **{k: res["stats"][k] for k in LADDER_KEYS},
+                "total_waves": res["stats"]["total_waves"],
+                "collectives": res["collectives"],
+                "seconds": max(rr[name][engine]["seconds"] for rr in ranks)}
+        log(f"sharded {SHARDED_RANKS} ranks gloo {name} ({tasks} tasks): "
+            + json.dumps(ladder))
+
+
 # ----------------------------------------------------------- kernel times
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                ops, ops_per_s=CUDA_CORE_OPS_PER_S):
@@ -1776,7 +2115,8 @@ def wave_kernel_rows(torch, ov_models, wide, launches, errs):
     window's first wave as the mask, the draws its recipes bind. The
     summary rows hold the widest tasks, and SIRS at s = 50 besides;
     ``launches`` maps each row to its phase's count (SIRS at s = 50: the
-    overlap path, the widest tasks: the task-size phase)."""
+    overlap path and the sharded phase, the widest tasks: the task-size
+    phase)."""
     from repro_torch.kernels.axelrod.ops import axelrod_wave
     from repro_torch.kernels.sir.ops import sir_wave
     from repro_torch.utils import prng
@@ -2654,7 +2994,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tasks", type=int, default=None,
                         help="tasks per model on both paths "
-                             f"(default 2^22 = {TOTAL_TASKS}; with "
+                             f"(default 2^21 = {TOTAL_TASKS}; with "
                              "--time-overlap 2^20)")
     parser.add_argument("--time-kernels", action="store_true",
                         help="only time the conflict, block, levels, "
@@ -2764,16 +3104,24 @@ def main(argv=None) -> None:
     drive_big_window(torch, models)
     log(f"wide footprints and big windows: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    sharded_launches = drive_sharded_nccl(torch, ov_models,
+                                          min(SHARDED_TASKS, tasks))
+    drive_sharded_ranks(torch, min(SHARDED_RANK_WINDOWS * WINDOW, tasks))
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+
     lm_launches, rwkv_launches = drive_lm(torch)
 
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)
         + "; task-size phase: " + json.dumps(wide_launches)
         + "; hub SIS: " + json.dumps(hub_launches)
+        + "; sharded phase: " + json.dumps(sharded_launches)
         + "; serving path: " + json.dumps(lm_launches)
         + "; rwkv serving path: " + json.dumps(rwkv_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
-             + hub_launches.get(k, 0) for k, v in ov_launches.items()}
+             + hub_launches.get(k, 0) + sharded_launches[k]
+             for k, v in ov_launches.items()}
     total["levels"] += (lm_launches["wave_levels"]
                         + rwkv_launches["wave_levels"])
     rows = kernel_rows(torch, models, ov_models, total, errs)
@@ -2781,7 +3129,8 @@ def main(argv=None) -> None:
         torch, ov_models, wide,
         {"axelrod_wave": total["axelrod_wave"],
          "sir_wave": wide_launches["sir_wave"],
-         "sir_wave s=50": ov_launches["sir_wave"]}, errs)
+         "sir_wave s=50": ov_launches["sir_wave"]
+         + sharded_launches["sir_wave"]}, errs)
     rows.append(wkv6_row(torch, rwkv_launches["wkv6"], errs["wkv6"]))
     rows.append(flash_row(torch, lm_launches["flash_attention"],
                           errs["flash_attention"]))

@@ -94,6 +94,37 @@ class MABSModel(abc.ABC):
         on the conflict-kernel path."""
         return None
 
+    def task_write_agents(self, recipes: Recipes) -> torch.Tensor | None:
+        """Optional [W, nt] int32 *state-row* indices each task writes
+        (-1 = unused slot). This is the sharded engine's ownership
+        contract: a task executes on every rank whose agent-row block
+        contains at least one of its write targets. Distinct from
+        ``task_footprint``, whose ids may live in abstract spaces (e.g.
+        SIRS block ids over two buffers); return None (the default) when
+        write targets are not state rows — the sharded engine then runs
+        every task on every rank (redundant compute, identical result).
+        """
+        return None
+
+    def task_read_agents(self, recipes: Recipes) -> torch.Tensor | None:
+        """Optional [W, nr] int32 *state-row* indices each task reads
+        (-1 = unused slot) — the read-side companion of
+        ``task_write_agents`` and the sharded engine's halo-exchange
+        contract: with both hooks declared, each wave gathers only the
+        window's read ∪ write rows (O(max_degree · window) values)
+        instead of all-gathering the full O(N) agent state.
+
+        The contract: the rows returned must cover every state row whose
+        *pre-wave* value can influence the task's writes, across all
+        state leaves — including rows the task only partially overwrites
+        (e.g. Axelrod writes one feature of the target's trait row, so
+        ``tgt`` must be listed). Like ``task_write_agents`` — and unlike
+        ``task_footprint`` — these are actual state-row indices, shared
+        by every leaf. Return None (the default) to keep the sharded
+        engine on its replicated all-gather fallback.
+        """
+        return None
+
     def conflicts(self, a: Recipes, b: Recipes, *,
                   strict: bool = True) -> torch.Tensor:
         """Pairwise predicate: does later task ``a`` conflict with earlier

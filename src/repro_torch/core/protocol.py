@@ -2,10 +2,14 @@
 
 Port of ``repro/core/protocol.py``. Engines are pluggable
 (``repro_torch.engine``): ``sequential`` (the oracle), ``wavefront``
-(single-device vectorized waves) and ``wavefront_overlap`` (the same
-with cross-window overlap). All run the identical task stream and are
-bit-exact against each other under the strict hazard rule. Entry
-points run on the card unless ``device`` names another.
+(single-device vectorized waves), ``wavefront_overlap`` (the same with
+cross-window overlap), and the sharded engines ``sharded``,
+``sharded_window_halo``, ``sharded_replicated`` and ``sharded_overlap``
+(waves sharded over the agent axis of a ``torch.distributed`` process
+group: pass ``group=``, or initialize the default group, or run a world
+of one). All run the identical task stream and are bit-exact against
+each other under the strict hazard rule. Entry points run on the card
+unless ``device`` names another.
 
 ``simulate_protocol`` (the discrete-event simulator) is not ported yet,
 nor are its ``ProtocolConfig`` fields (``n_workers``, ``tasks_per_cycle``).
@@ -34,7 +38,9 @@ def run_engine(model, state, total_tasks: int, *, seed: int = 0,
     """Run total_tasks through the engine named by ``engine`` (or
     ``config.engine``) on ``device`` (default: the card); extra kwargs go
     to the engine constructor (``overlap=...`` flips the cross-window
-    overlap knob, default from config). Returns (state, stats)."""
+    overlap knob, default from config; the sharded engines take
+    ``group=``, ``halo=``, ``split=`` and ``chunk=``). Returns (state,
+    stats)."""
     import inspect
 
     from repro_torch.engine import get_engine, make_engine

@@ -1,0 +1,362 @@
+"""The agent axis of the sharded wavefront engine on ``torch.distributed``.
+
+Port of the agent-axis part of ``repro/distributed/sharding.py`` (its LM
+mesh rules are not ported yet). The reference shards agent state over a
+1-D ``("agents",)`` device mesh inside ``shard_map``; here a process
+group takes the mesh's place and each rank holds one contiguous row block
+of every state leaf (``AgentGroup``). Window-local scheduling objects
+(recipes, levels, halos, slab layouts) stay replicated: every rank
+computes them from the same key, so deriving them costs no communication.
+
+Collectives. Every gather here is one collective per call, whatever the
+number of state leaves: the rows of all leaves are packed side by side as
+bytes ([h, row_bytes] uint8) and travel together.
+
+  * a halo gather (``halo_gather``, ``wave_halo_gather``) is one
+    ``all_reduce(SUM)`` of the packed rows: each real row has exactly one
+    owner rank, which contributes its bytes while every other rank
+    contributes zeros, so the byte-wise sum is exact for any dtype;
+  * the replicated layout (``all_gather_rows``) is one ``all_gather`` of
+    the packed row blocks.
+
+``AgentGroup`` counts, at these call sites, the collectives issued and the
+bytes each rank receives from them — the stand-in for the reference's
+HLO cross-check (``repro/obs/costs.py``, not ported): over a run they
+equal the engine's ``comm_bytes_total`` exactly. A world of one (no
+process group) issues no collective — the reference's one-device mesh,
+whose psum is the identity — but its call sites still count, so its
+ledger reads as the reference's does.
+"""
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.obs.profiler import annotate
+from repro_torch.utils.device import resolve_device
+
+
+# --------------------------------------------------------------------------
+# the agent group (the reference's agents_mesh / agent_state_shardings)
+
+@dataclass
+class AgentGroup:
+    """One rank's view of the agent axis: the process group (None = a
+    world of one, no collective), this rank, the world size, the device
+    its rows live on, and the rows each rank owns (``shard_n``, set by
+    ``for_agents`` once the agent count is known). ``collectives`` and
+    ``comm_bytes`` count the collective call sites reached and the bytes
+    received from them."""
+
+    group: Any
+    rank: int
+    world_size: int
+    device: torch.device
+    shard_n: int = 0
+    collectives: int = 0
+    comm_bytes: int = 0
+
+    def for_agents(self, n: int) -> "AgentGroup":
+        """The group laid out over ``n`` agents: contiguous row blocks of
+        ceil(n / world_size) rows (the last rank's block padded), the
+        counters at zero."""
+        return replace(self, shard_n=-(-n // self.world_size),
+                       collectives=0, comm_bytes=0)
+
+    @property
+    def lo(self) -> int:
+        """First global row of this rank's block."""
+        return self.rank * self.shard_n
+
+    @property
+    def n_pad(self) -> int:
+        return self.shard_n * self.world_size
+
+
+def agent_group(group=None, device=None) -> AgentGroup:
+    """The agent axis over ``group``: the given process group, else the
+    default one when ``torch.distributed`` is initialized, else a world
+    of one. ``device`` defaults to the card this rank runs on,
+    ``cuda:<LOCAL_RANK>`` (or ``cuda:<rank>``) modulo the visible cards,
+    and raises without one. The group's backend is used as it is; a
+    group that cannot carry the device's tensors (NCCL and CPU tensors)
+    raises."""
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    if group is None:
+        rank, world = 0, 1
+    else:
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if device is None:
+        resolve_device(None)  # raises without a card
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    device = resolve_device(device)
+    if group is not None:
+        backends = str(dist.get_backend(group)).lower()
+        carried = {b.split(":")[0] for b in backends.split(",")
+                   if ":" in b}
+        if carried:
+            ok = device.type in carried
+        else:
+            ok = not (backends == "nccl" and device.type != "cuda")
+        if not ok:
+            raise ValueError(f"the process group's backend {backends!r} "
+                             f"cannot carry {device.type} tensors")
+    return AgentGroup(group, rank, world, device)
+
+
+# --------------------------------------------------------------------------
+# packed collectives
+
+def _leaves(x) -> dict:
+    return x if isinstance(x, dict) else {"": x}
+
+
+def _pack(parts: dict) -> torch.Tensor:
+    """Leaves [h, ...] -> one [h, row_bytes] uint8 buffer."""
+    cols = [p.reshape(p.shape[0], -1).contiguous().view(torch.uint8)
+            for p in parts.values()]
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+
+
+def _unpack(buf: torch.Tensor, like: dict) -> dict:
+    """Inverse of ``_pack``: slice each leaf's bytes back out of ``buf``
+    with the dtype and trailing shape of the matching leaf of ``like``."""
+    out, at = {}, 0
+    for k, x in like.items():
+        nb = x.element_size() * math.prod(x.shape[1:])
+        col = buf[:, at:at + nb]
+        if col.shape[1] != buf.shape[1]:
+            col = col.contiguous()
+        out[k] = col.view(x.dtype).reshape((buf.shape[0],) + x.shape[1:])
+        at += nb
+    return out
+
+
+def _all_reduce_sum(buf: torch.Tensor, agents: AgentGroup) -> torch.Tensor:
+    agents.collectives += 1
+    agents.comm_bytes += buf.numel() * buf.element_size()
+    if agents.group is not None:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=agents.group)
+    return buf
+
+
+def all_gather_rows(local, agents: AgentGroup, *, count: bool = True):
+    """Every rank's row block, concatenated: the full [n_pad, ...] leaves
+    (a tensor, or a dict of them, as ``local`` is) in one ``all_gather``
+    of the packed blocks. ``count=False`` keeps the call out of the
+    counters (the engine's final gather, which the reference's stats do
+    not count either)."""
+    leaves = _leaves(local)
+    buf = _pack(leaves)
+    if count:
+        agents.collectives += 1
+        agents.comm_bytes += (buf.numel() * buf.element_size()
+                              * agents.world_size)
+    if agents.group is not None:
+        out = buf.new_empty((agents.world_size * buf.shape[0],
+                             buf.shape[1]))
+        dist.all_gather(list(out.chunk(agents.world_size)), buf,
+                        group=agents.group)
+        buf = out
+    full = _unpack(buf, leaves)
+    return full if isinstance(local, dict) else full[""]
+
+
+# --------------------------------------------------------------------------
+# halo exchange (repro_torch.engine.sharded, halo mode)
+#
+# The sharded engine's communication-sparse mode. A window's tasks read a
+# degree-bounded set of agent rows (the models' task_read_agents /
+# task_write_agents contracts); instead of all-gathering the full O(N)
+# state every wave, the schedule carries the flattened row list and each
+# wave ships exactly those rows: every row has a unique owner rank, the
+# owner contributes its value, a sum over the group delivers the row to
+# all ranks. Per-wave comm is O(halo · trailing) values per rank versus
+# the all_gather's O(N · trailing).
+
+def window_halo(read_agents: torch.Tensor,
+                write_agents: torch.Tensor) -> torch.Tensor:
+    """Flatten a window's read ∪ write state rows into the gather list.
+
+    read_agents [W, nr] / write_agents [W, nw] int32, -1 padded; returns
+    [W·(nr+nw)] int32 with -1 marking unused slots. Static width — the
+    halo is degree-bounded by construction (nr tracks max_degree), and
+    duplicates are kept: the refresh scatter is idempotent, so dedup
+    would only shuffle bytes without shrinking the buffer. Computed from
+    replicated values, so every rank derives the identical list without
+    communicating.
+    """
+    return torch.cat([read_agents.reshape(-1),
+                      write_agents.reshape(-1)]).to(torch.int32)
+
+
+def pair_halo(halo_prev: torch.Tensor,
+              halo_next: torch.Tensor) -> torch.Tensor:
+    """Halo for an overlapped window pair: the union of both windows'
+    read ∪ write rows, realized by concatenation — [h_prev + h_next]
+    int32, -1 slots preserved. During cross-window overlap a fused wave
+    may execute window k tail tasks *and* window k+1 head tasks, so the
+    per-wave gather must deliver every row either side can touch.
+    Duplicates across the two windows are kept for the same reason
+    ``window_halo`` keeps them.
+    """
+    return torch.cat([halo_prev, halo_next]).to(torch.int32)
+
+
+def halo_gather(local, halo: torch.Tensor, agents: AgentGroup):
+    """Gather global rows ``halo`` from row-sharded leaves.
+
+    ``local`` is this rank's contiguous row block [shard_n, ...] (a
+    tensor, or a dict of leaves that share the row axis); ``halo`` [h]
+    holds global row ids (-1 = unused, gathers zeros). Each real row has
+    exactly one owner (id // shard_n), so masking non-owned slots to zero
+    and summing over the group reconstructs the rows everywhere — one
+    all-reduce of h packed rows instead of an all_gather of N. A
+    zero-width halo (an empty wave's slab) is a clean no-op: no
+    collective is issued and nothing is counted.
+    """
+    leaves = _leaves(local)
+    if halo.shape[0] == 0:
+        out = {k: x.new_zeros((0,) + x.shape[1:]) for k, x in leaves.items()}
+    else:
+        with annotate("protocol.halo_gather", agents.device):
+            lo, shard_n = agents.lo, agents.shard_n
+            sel = (halo >= lo) & (halo < lo + shard_n)
+            idx = torch.clamp(halo - lo, 0, shard_n - 1).long()
+            buf = _pack({k: x[idx] for k, x in leaves.items()})
+            buf = torch.where(sel[:, None], buf, 0)  # uint8 stays uint8
+            out = _unpack(_all_reduce_sum(buf, agents), leaves)
+    return out if isinstance(local, dict) else out[""]
+
+
+def halo_scatter(full: torch.Tensor, halo: torch.Tensor,
+                 gathered: torch.Tensor) -> torch.Tensor:
+    """A copy of ``full`` with rows ``halo`` refreshed from ``gathered``
+    (-1 slots dropped; duplicate slots write identical values)."""
+    with annotate("protocol.halo_scatter", full.device):
+        n = full.shape[0]
+        ext = torch.cat([full, full.new_zeros((1,) + full.shape[1:])])
+        ext.index_put_((torch.where(halo >= 0, halo, n).long(),), gathered)
+        return ext[:n]
+
+
+# ---- per-wave halo splitting (schedule-time comm specialization) ----------
+#
+# The window halo above is monolithic: every wave re-gathers the whole
+# window's read ∪ write rows, O(W·slots) per wave however little wave w
+# actually touches. But wave levels are known at schedule time, so the
+# halo can be split into per-wave slabs: wave w gathers only the rows of
+# tasks at level w. Slab widths are heavily skewed (level 0 usually holds
+# most of a window's tasks, tail waves a handful), so the slabs are laid
+# out *wave-major in fixed-size chunks* — wave w owns the chunk range
+# [chunk_start[w], chunk_start[w+1]). Shipped volume per wave is
+# ceil(rows_w / chunk)·chunk ≈ rows_w, summed over the window ≈ one window
+# halo instead of n_waves of them. The reference gathers a wave's range
+# chunk by chunk on the device; here the engine reads ``chunk_start`` on
+# the host with the window's wave count (one copy) and gathers a wave's
+# whole range in one collective (``wave_halo_gather``) — the same rows.
+
+def wave_slab_counts(rows: torch.Tensor, levels: torch.Tensor, *,
+                     n_waves_max: int) -> torch.Tensor:
+    """Valid-row count of each wave's slab.
+
+    rows [W, slots] int32 per-task read ∪ write state rows (-1 padded);
+    levels [W] int32 wave level per task (-1 = invalid/executed). Returns
+    [n_waves_max] int32. Unlike ``window_halo``, -1 row slots are dropped
+    — the slab layout is allowed to be tighter than the static halo.
+    """
+    key, ok = _slab_keys(rows, levels, n_waves_max)
+    return _counts(key, ok, n_waves_max)
+
+
+def _slab_keys(rows, levels, n_waves_max):
+    """Per row slot: its wave (n_waves_max for a dropped slot), and
+    whether it is kept."""
+    slots = rows.shape[1]
+    wave = levels.to(torch.int32)[:, None].expand(-1, slots).reshape(-1)
+    ok = (rows.reshape(-1) >= 0) & (wave >= 0) & (wave < n_waves_max)
+    return torch.where(ok, wave, n_waves_max), ok
+
+
+def _counts(key, ok, n_waves_max):
+    # a scatter-add, not bincount: bincount sizes its output from the
+    # data's max, a host sync on the card
+    counts = torch.zeros(n_waves_max + 1, dtype=torch.int32,
+                         device=key.device)
+    counts.scatter_add_(0, key.long(), ok.to(torch.int32))
+    return counts[:n_waves_max]
+
+
+def wave_halo_split(rows: torch.Tensor, levels: torch.Tensor, *,
+                    n_waves_max: int, chunk: int,
+                    n_chunks_max: int | None = None):
+    """Partition a window's read ∪ write rows into per-wave chunked slabs.
+
+    rows [W, slots] int32 (-1 padded), levels [W] int32 (-1 dropped —
+    executed tasks of a draining window contribute nothing). Returns
+
+      slabs       [n_chunks_max, chunk] int32, -1 padded: wave-major
+                  chunk layout; wave w's rows fill chunks
+                  [chunk_start[w], chunk_start[w+1]) contiguously, in
+                  task-major slot order (a stable sort, as the
+                  reference's),
+      chunk_start [n_waves_max + 1] int32 cumulative chunk offsets
+                  (an empty wave owns zero chunks -> a clean no-op).
+
+    ``n_chunks_max`` defaults to the worst case
+    ceil(W·slots / chunk) + n_waves_max (every wave pays at most one
+    partially-filled chunk); rows whose wave is >= n_waves_max are
+    dropped (an overlapped pair's next-window tasks beyond the drain
+    horizon — they are re-split after rebasing). Static shapes and no
+    host sync: every rank derives the identical layout from replicated
+    values.
+    """
+    w_tasks, slots = rows.shape
+    if n_chunks_max is None:
+        n_chunks_max = -(-(w_tasks * slots) // chunk) + n_waves_max
+    with annotate("protocol.wave_halo_split", rows.device):
+        flat = rows.reshape(-1)
+        key, ok = _slab_keys(rows, levels, n_waves_max)
+        counts = _counts(key, ok, n_waves_max)
+        zero = counts.new_zeros(1)
+        chunk_start = torch.cat([zero, torch.cumsum(
+            (counts + chunk - 1) // chunk, 0).to(torch.int32)])
+        starts = torch.cat([zero, torch.cumsum(counts, 0).to(torch.int32)])
+        # rank of each kept entry within its wave: a stable sort groups
+        # waves contiguously (the sentinel n_waves_max sinks dropped
+        # entries past the real segments), rank = position - segment start
+        order = torch.argsort(key, stable=True)
+        k_sorted, r_sorted = key[order].long(), flat[order]
+        rank = (torch.arange(k_sorted.shape[0], dtype=torch.int32,
+                             device=rows.device) - starts[k_sorted])
+        # flat position in the chunked layout: wave w's chunk range, row rank
+        pos = chunk_start[k_sorted] * chunk + rank
+        total = n_chunks_max * chunk
+        keep = (k_sorted < n_waves_max) & (pos < total)
+        slabs = torch.full((total + 1,), -1, dtype=torch.int32,
+                           device=rows.device)
+        slabs.index_put_((torch.where(keep, pos, total).long(),),
+                         r_sorted.to(torch.int32))
+        return slabs[:total].reshape(n_chunks_max, chunk), chunk_start
+
+
+def wave_halo_gather(local, slabs: torch.Tensor, c0: int, c1: int, *,
+                     agents: AgentGroup):
+    """Gather chunks [c0, c1) of a per-wave slab layout — a wave's whole
+    chunk range, where the reference gathers one chunk a call — from
+    row-sharded leaves in one collective: returns (rows
+    [(c1 - c0)·chunk, ...], slab [(c1 - c0)·chunk]) — the slab is handed
+    back so the caller can scatter the gathered rows without
+    re-indexing. An empty range, or zero-width chunks, issues no
+    collective, matching ``halo_gather``.
+    """
+    with annotate("protocol.wave_halo_gather", agents.device):
+        slab = slabs[c0:c1].reshape(-1)
+        return halo_gather(local, slab, agents), slab

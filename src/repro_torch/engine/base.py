@@ -1,9 +1,10 @@
 """Execution-engine interface and registry.
 
 Port of ``repro/engine/base.py``. An *engine* binds a ``MABSModel`` to a
-way of running its task chain: strictly sequentially (the oracle) or by
-vectorized waves on one device. All engines consume the identical task
-stream (``create_tasks`` keyed by the global chain index) and produce
+way of running its task chain: strictly sequentially (the oracle), by
+vectorized waves on one device, or by waves sharded over the agent axis
+of a process group. All engines consume the identical task stream
+(``create_tasks`` keyed by the global chain index) and produce
 bit-identical state under the strict hazard rule.
 
     from repro_torch.engine import make_engine
@@ -23,8 +24,9 @@ untraced branch of each step — no extra op and no host sync. With a
 tracer installed, the ``run``/``schedule``/``boundary``/``execute``
 spans of the reference are recorded, each fenced on its outputs, and
 each window's execute span is subdivided into width-attributed ``wave``
-spans. Not ported yet: the compiled-cost hooks (they go with the
-sharded engines).
+spans. Not ported: the compiled-cost hooks, which lower XLA executors
+(the sharded engines count their collectives' bytes at the call sites
+instead, ``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from repro_torch.core.records import (
     window_conflicts,
 )
 from repro_torch.obs.stats import finalize_stats
-from repro_torch.obs.trace import current_tracer
+from repro_torch.obs.trace import TID_COMM, current_tracer
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.timing import block_all
@@ -114,7 +116,10 @@ class Engine(abc.ABC):
 class WindowedEngine(Engine):
     """Shared streaming loop: window t+1 is scheduled before window t
     executes. Subclasses provide ``_execute(state, sched)`` -> (state,
-    n_waves) for one scheduled window.
+    n_waves) for one scheduled window, plus optional ``_prepare_state`` /
+    ``_finalize_state`` / ``_extend_stats`` hooks (the sharded engines
+    keep this rank's row block of the state between them and add their
+    comm stats).
 
     **Cross-window overlap** (``overlap=True``, or the ``*_overlap``
     registry entries): when window k+1 is scheduled, the boundary step
@@ -139,6 +144,18 @@ class WindowedEngine(Engine):
     _schedule_ov = None
     _execute_pair = None
     _execute_drain = None
+
+    def _prepare_state(self, state):
+        """The state the window executors take, from the caller's."""
+        return state
+
+    def _finalize_state(self, state):
+        """The caller's state back from the executors' (run's result)."""
+        return state
+
+    def _extend_stats(self, stats: dict) -> dict:
+        """Engine-specific stats, added before ``finalize_stats``."""
+        return stats
 
     def _schedule_window_ov(self, base_key, start: int, count: int):
         """Create one window of tasks and its conflict matrix (conflict
@@ -170,11 +187,22 @@ class WindowedEngine(Engine):
     # attribute wall time to the schedule, boundary and execute steps.
 
     def _trace_parts(self, sched, levels=None):
-        """The level vector of one window's schedule, for the per-wave
-        trace attributes; ``levels`` overrides the schedule's own (the
-        overlapped loop re-levels and rebases). None disables per-wave
-        spans for this engine."""
+        """(levels, write_agents, rows) of one window's schedule, for the
+        per-wave trace attributes; ``levels`` overrides the schedule's own
+        (the overlapped loop re-levels and rebases). None disables
+        per-wave spans for this engine."""
         return None
+
+    def _trace_wave_comm(self, np_parts, n_waves: int):
+        """Per-wave comm attributes (list of dicts with ``rung``/``rows``
+        /``bytes`` and optionally ``owned`` per-rank task counts), or
+        None for engines that ship nothing."""
+        return None
+
+    def _trace_execute_args(self) -> dict:
+        """Extra args for a just-closed execute span (e.g. the sharded
+        engine's comm-ladder rung)."""
+        return {}
 
     def _dispatch_schedule(self, tr, base_key, start: int, count: int, *,
                            index: int, ov: bool = False):
@@ -190,23 +218,40 @@ class WindowedEngine(Engine):
 
     def _trace_window(self, tr, sp, parts, n_waves: int) -> None:
         """Emit one ``wave`` span per executed wave, width-attributed
-        inside the closed execute span ``sp``. ``parts`` holds one
-        ``_trace_parts`` level vector per live window (two for a fused
-        pair drain); a wave's width counts the tasks of every part at
-        its level."""
+        inside the closed execute span ``sp``, and per-wave
+        ``halo_gather`` spans on the comm thread for engines that ship
+        rows. ``parts`` holds one ``_trace_parts`` triple per live window
+        (two for a fused pair drain); a wave's width counts the tasks of
+        every part at its level."""
         parts = [p for p in parts if p is not None]
         if n_waves <= 0 or not parts:
             return
         widths = np.zeros(n_waves, np.int64)
-        for lv in parts:
+        np_parts = []
+        for lv, wa, rows in parts:
             lv = lv.cpu().numpy()
+            np_parts.append((lv,
+                             None if wa is None else wa.cpu().numpy(),
+                             None if rows is None else rows.cpu().numpy()))
             sel = lv[(lv >= 0) & (lv < n_waves)]
             if sel.size:
                 widths += np.bincount(sel, minlength=n_waves)[:n_waves]
+        comm = self._trace_wave_comm(np_parts, n_waves)
         window = sp.args.get("index")
         args = [{"window": window, "level": w, "width": int(widths[w])}
                 for w in range(n_waves)]
-        tr.subdivide(sp, "wave", widths.tolist(), args)
+        if comm is not None:
+            for a, c in zip(args, comm):
+                owned = c.pop("owned", None)
+                if owned is not None:
+                    a["owned"] = owned
+        slots = tr.subdivide(sp, "wave", widths.tolist(), args)
+        if comm is not None:
+            for w, ((ts, dur), c) in enumerate(zip(slots, comm)):
+                if c.get("rows"):
+                    tr.complete("halo_gather", ts, dur, tid=TID_COMM,
+                                window=window, level=w, attributed=True,
+                                **c)
 
     def _traced_execute(self, tr, args: dict, parts, fn):
         """``fn()`` -> (state, n_waves, ...) inside an ``execute`` span with
@@ -216,6 +261,7 @@ class WindowedEngine(Engine):
             out = fn()
             block_all(out[0])
         sp.args["n_waves"] = out[1]
+        sp.args.update(self._trace_execute_args())
         self._trace_window(tr, sp, parts, out[1])
         return out
 
@@ -229,6 +275,7 @@ class WindowedEngine(Engine):
             return self._run_overlapped(state, total_tasks, seed=seed)
         tr = current_tracer()
         base_key = prng.key(seed, device=self.device)
+        state = self._prepare_state(state)
         t = 0
         n_windows = 0
         total_waves = 0
@@ -265,7 +312,8 @@ class WindowedEngine(Engine):
             "mean_parallelism": total_tasks / max(total_waves, 1),
             "overlap": False,
         }
-        return state, finalize_stats(stats)
+        state = self._finalize_state(state)
+        return state, finalize_stats(self._extend_stats(stats))
 
     # ------------------------------------------------- cross-window overlap
     def _boundary(self, rec_a, lv_a, rec_b, valid_b, conf_b):
@@ -304,6 +352,7 @@ class WindowedEngine(Engine):
         and are read once after the loop."""
         tr = current_tracer()
         base_key = prng.key(seed, device=self.device)
+        state = self._prepare_state(state)
         t = 0
         n_windows = 0
         total_waves = 0
@@ -389,4 +438,5 @@ class WindowedEngine(Engine):
                                     if cmeans else 0.0),
             "carry_frontier_max": max(cmaxs, default=0),
         }
-        return state, finalize_stats(stats)
+        state = self._finalize_state(state)
+        return state, finalize_stats(self._extend_stats(stats))

@@ -60,8 +60,9 @@ class WavefrontEngine(WindowedEngine):
 
     def _trace_parts(self, sched, levels=None):
         # the barrier schedule carries its levels in slot 2; the
-        # overlapped loop re-levels and passes them explicitly
-        return sched[2] if levels is None else levels
+        # overlapped loop re-levels and passes them explicitly. One
+        # device ships no rows: no write targets or halo rows to trace
+        return (sched[2] if levels is None else levels), None, None
 
     def _execute_drain(self, state, cur, lv):
         """Partnerless drain (the last or only window) through the

@@ -99,6 +99,18 @@ class AxelrodModel(MABSModel):
         reads = torch.stack([recipes["src"], recipes["tgt"]], dim=-1)
         return reads, recipes["tgt"][..., None]
 
+    def task_write_agents(self, recipes):
+        """The interaction writes (at most) one feature of the target's
+        trait row — the sharded engine's ownership key is tgt."""
+        return recipes["tgt"][..., None]
+
+    def task_read_agents(self, recipes):
+        """Halo contract: both trait rows are read. tgt must be listed
+        even though it is the write row — the interaction overwrites a
+        single feature, so the rest of tgt's row carries through from its
+        pre-wave value."""
+        return torch.stack([recipes["src"], recipes["tgt"]], dim=-1)
+
     def conflicts(self, a, b, *, strict: bool = True):
         """later a vs earlier b — hand-written form of the footprint rule."""
         c = (a["src"] == b["tgt"]) | (a["tgt"] == b["tgt"])  # paper rule

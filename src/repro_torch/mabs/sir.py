@@ -134,6 +134,39 @@ class SIRModel(MABSModel):
         writes = torch.where(ttype == 1, subset, m + subset)[..., None]
         return reads.to(torch.int32), writes.to(torch.int32)
 
+    def _block_rows(self, blocks):
+        """Block ids [..., Db] (-1 padded) expanded to their state rows
+        [..., Db·s], -1 padded."""
+        s = self.cfg.subset_size
+        rows = blocks[..., None] * s + torch.arange(
+            s, dtype=torch.int32, device=blocks.device)
+        rows = torch.where(blocks[..., None] >= 0, rows, -1)
+        return rows.reshape(*blocks.shape[:-1], -1).to(torch.int32)
+
+    def task_write_agents(self, recipes):
+        """Agent rows written, for the sharded engine's ownership test.
+
+        Unlike ``task_footprint`` (block ids over two abstract id spaces),
+        these are actual state-row indices: task (subset, type) writes the
+        contiguous rows [subset*s, (subset+1)*s) — of ``new_states`` for a
+        compute, of ``states`` for a commit; both leaves shard identically
+        so the buffer distinction doesn't matter for ownership."""
+        return self._block_rows(recipes["subset"][..., None])
+
+    def task_read_agents(self, recipes):
+        """Halo contract (actual state rows, buffer-agnostic — both
+        leaves shard identically): a compute reads ``states`` over every
+        adjacent block (its agents' contact neighborhoods live there, the
+        self loop covers its own block); a commit reads ``new_states``
+        over its own block only. Rows: block ids expanded by the subset
+        size, [W, Db·s], -1 padded."""
+        subset, ttype = recipes["subset"], recipes["type"]
+        nbr_blocks = self.block_topo.neighbors[subset.long()]  # [..., Db]
+        own = torch.full_like(nbr_blocks, -1)
+        own[..., 0] = subset
+        blocks = torch.where((ttype == 1)[..., None], own, nbr_blocks)
+        return self._block_rows(blocks)
+
     def conflicts(self, a, b, *, strict: bool = True):
         """later a vs earlier b — hand-written form of the footprint rule."""
         same = a["subset"] == b["subset"]

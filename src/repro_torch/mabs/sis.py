@@ -70,6 +70,16 @@ class SISModel(MABSModel):
                           dim=-1)
         return reads.to(torch.int32), v[..., None]
 
+    def task_write_agents(self, recipes):
+        """Writes land in row v — the sharded engine's ownership key."""
+        return recipes["v"][..., None]
+
+    def task_read_agents(self, recipes):
+        """Halo contract: the footprint reads ARE state rows here —
+        {v} ∪ neighbors(v), padded neighbor row included verbatim."""
+        reads, _ = self.task_footprint(recipes)
+        return reads
+
     # --------------------------------------------------------- execution
     def _draws(self, recipes):
         return prng.uniform(recipes["key"])                           # [W]

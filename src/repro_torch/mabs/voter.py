@@ -63,6 +63,15 @@ class VoterModel(MABSModel):
         """R = {u} (the copied opinion), W = {v} (the updated agent)."""
         return recipes["u"][..., None], recipes["v"][..., None]
 
+    def task_write_agents(self, recipes):
+        """Writes land in row v — the sharded engine's ownership key."""
+        return recipes["v"][..., None]
+
+    def task_read_agents(self, recipes):
+        """Only row u is read (row v is fully overwritten), so the halo
+        each rank gathers per wave is one row per owned task."""
+        return recipes["u"][..., None]
+
     # --------------------------------------------------------- execution
     def execute_wave(self, state, recipes, mask):
         opinions = state["opinions"]

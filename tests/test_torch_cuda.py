@@ -758,3 +758,82 @@ def test_rwkv_serving_on_card_matches_sequential_through_wkv6(cuda_device,
     assert wkv6_kernel.launches - n0 == cfg.n_layers * (
         eng.prefill_tasks + len(waves))
     assert [r.out_tokens for r in done] == refs
+
+
+# ------------------------------------------------ the sharded engines, NCCL
+SCHEDULE_KEYS = ("total_tasks", "n_windows", "total_waves",
+                 "mean_parallelism", "overlap", "n_boundaries",
+                 "mean_overlap_depth", "max_overlap_depth",
+                 "overlap_tasks_early", "carry_frontier_mean",
+                 "carry_frontier_max")
+
+
+@pytest.fixture
+def nccl_world_one(cuda_device, tmp_path):
+    """The default process group: NCCL, one rank on the card (NCCL puts
+    no two ranks on one GPU)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("engine", ["sharded", "sharded_window_halo",
+                                    "sharded_replicated", "sharded_overlap"])
+@pytest.mark.parametrize("name", ["voter", "sis", "axelrod", "sirs"])
+def test_sharded_world_one_nccl_equals_wavefront(cuda_device, nccl_world_one,
+                                                 name, engine):
+    """Each sharded engine at world size 1 under NCCL (the default group,
+    found by the engine) equals ``wavefront`` / ``wavefront_overlap`` on
+    the card: state, schedule stats, kernel launches; its collective call
+    sites count ``comm_bytes_total``."""
+    from repro_torch.engine import make_engine
+
+    model = _small_models(cuda_device)[name]
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    total = 256 * 6 + 100
+    overlap = engine == "sharded_overlap"
+    wf, wf_stats = make_engine(
+        "wavefront_overlap" if overlap else "wavefront", model,
+        window=256, device=cuda_device).run(state0, total, seed=6)
+    waves = _count_waves(model)
+    conflict_kernel.launches = conflict_kernel.block_launches = 0
+    levels_kernel.launches = 0
+    axelrod_kernel.launches = sir_kernel.launches = 0
+    eng = make_engine(engine, model, window=256)
+    assert eng.agents.group is nccl_world_one
+    assert eng.device == cuda_device
+    out, stats = eng.run(state0, total, seed=6)
+    assert conflict_kernel.launches == levels_kernel.launches == 7
+    assert conflict_kernel.block_launches == (6 if overlap else 0)
+    assert axelrod_kernel.launches == (waves[0] if name == "axelrod" else 0)
+    assert sir_kernel.launches == (waves[0] if name == "sirs" else 0)
+    for k in out:
+        assert torch.equal(out[k], wf[k])
+    assert {k: stats.get(k) for k in SCHEDULE_KEYS} == \
+        {k: wf_stats.get(k) for k in SCHEDULE_KEYS}
+    assert stats["n_devices"] == 1
+    assert eng.agents.comm_bytes == stats["comm_bytes_total"] > 0
+
+
+@pytest.mark.parametrize("engine", ["sharded", "sharded_overlap"])
+def test_sharded_world_of_one_on_card_equals_wavefront(cuda_device, engine):
+    """Without a process group the engine is a world of one: no
+    collective, the same state as the wavefront engines on the card."""
+    from repro_torch.engine import make_engine
+
+    model = _small_models(cuda_device)["sis"]
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    out, stats = make_engine(engine, model, window=256).run(state0, 1636,
+                                                            seed=6)
+    wf, _ = make_engine(engine.replace("sharded", "wavefront"), model,
+                        window=256, device=cuda_device).run(state0, 1636,
+                                                            seed=6)
+    assert stats["n_devices"] == 1 and stats["halo_split"]
+    assert torch.equal(out["states"], wf["states"])

@@ -4,9 +4,12 @@ tests/test_engine_differential.py on the port's single-device engines.
 Voter, SIS, Axelrod and SIRS over ring, 2D lattice, Watts-Strogatz,
 Erdos-Renyi and Barabasi-Albert at n ~ 50 (the last two made by the
 reference's generators and carried across: the port has none), each
-through ``sequential``, ``wavefront`` and ``wavefront_overlap`` at W = 16,
-bit for bit against the reference's oracle, with the overlap run never
-executing more waves than the barrier run."""
+through ``sequential``, ``wavefront``, ``wavefront_overlap`` and the four
+sharded engines at world size 1 (``sharded``, ``sharded_window_halo``,
+``sharded_replicated``, ``sharded_overlap``) at W = 16, bit for bit
+against the reference's oracle, with the overlap runs never executing
+more waves than the barrier run, and each sharded engine's schedule that
+of its single-device counterpart."""
 import functools
 
 import numpy as np
@@ -81,7 +84,9 @@ def test_differential_harness(model, topo):
     js0 = jm.init_state(jax.random.key(1))
     ps0 = pm.init_state(prng.key(1, device=CPU), device=CPU)
     engines = {e: make_engine(e, pm, window=16, device=CPU)
-               for e in ("sequential", "wavefront", "wavefront_overlap")}
+               for e in ("sequential", "wavefront", "wavefront_overlap",
+                         "sharded", "sharded_window_halo",
+                         "sharded_replicated", "sharded_overlap")}
     for total in ((32, 44) if topo == "ring" else (44,)):
         oracle = J.run_oracle(jm, js0, total, seed=2,
                               config=J.ProtocolConfig(window=16))
@@ -89,7 +94,15 @@ def test_differential_harness(model, topo):
         for ename, eng in engines.items():
             out, stats[ename] = eng.run(ps0, total, seed=2)
             assert_states_equal(out, oracle)
-        ov = stats["wavefront_overlap"]
-        assert ov["overlap"] is True
-        assert ov["n_boundaries"] == ov["n_windows"] - 1
-        assert ov["total_waves"] <= stats["wavefront"]["total_waves"]
+        barrier = stats["wavefront"]["total_waves"]
+        for ename in ("wavefront_overlap", "sharded_overlap"):
+            ov = stats[ename]
+            assert ov["overlap"] is True
+            assert ov["n_boundaries"] == ov["n_windows"] - 1
+            assert ov["total_waves"] <= barrier
+        assert (stats["sharded_overlap"]["total_waves"]
+                == stats["wavefront_overlap"]["total_waves"])
+        for ename in ("sharded", "sharded_window_halo",
+                      "sharded_replicated"):
+            assert stats[ename]["total_waves"] == barrier
+            assert stats[ename]["n_devices"] == 1

@@ -188,7 +188,7 @@ def test_overlap_and_unknown_engine_raise():
     with pytest.raises(ValueError, match="overlap"):
         BarrierOnly(pm, window=64, overlap=True, device=CPU).run(ps0, 100)
     with pytest.raises(ValueError, match="unknown engine"):
-        P.run_engine(pm, ps0, 100, device=CPU, engine="sharded")
+        P.run_engine(pm, ps0, 100, device=CPU, engine="no_such_engine")
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))

@@ -7,7 +7,10 @@ subdivides and exports as the reference's does, and its validator
 rejects the reference's malformed payloads; a traced run of each engine
 is bit-exact with the untraced one and records the reference's events
 (name, phase, category, thread and args — not the timestamps) for the
-same model, seed and window; with tracing off the engines reach none of
+same model, seed and window — for the sharded engines at world size 1
+also the execute spans' rung, the waves' per-rank ``owned`` counts and
+the comm thread's ``halo_gather`` spans (rung, rows, bytes), one per
+collective the run issued; with tracing off the engines reach none of
 the trace hooks; ``block_all``, ``median_time``, the profiler session and
 ``provenance`` work on the CPU."""
 import json
@@ -33,13 +36,15 @@ from repro_torch.bridge import state_from_numpy  # noqa: E402
 from repro_torch.engine import base as engine_base  # noqa: E402
 from repro_torch.engine import make_engine  # noqa: E402
 from repro_torch.engine import sequential as engine_sequential  # noqa: E402
+from repro_torch.engine import sharded as engine_sharded  # noqa: E402
 from repro_torch.engine import wavefront as engine_wavefront  # noqa: E402
 from repro_torch.obs import stats as PS  # noqa: E402
 from repro_torch.obs.profiler import annotate, profile_session  # noqa: E402
 from repro_torch.utils import timing  # noqa: E402
 
 CPU = "cpu"
-ENGINES = ["sequential", "wavefront", "wavefront_overlap"]
+ENGINES = ["sequential", "wavefront", "wavefront_overlap", "sharded",
+           "sharded_overlap"]
 
 
 # ------------------------------------------------------------ stats registry
@@ -223,6 +228,13 @@ def test_traced_run_matches_reference(model, ename):
         assert sum(e["args"]["width"] for e in waves) == 40
     if ename.endswith("_overlap"):
         assert "boundary" in names
+    if ename.startswith("sharded"):
+        # one halo_gather span per collective: none for an empty wave
+        gathers = [e for e in ptr.events() if e["name"] == "halo_gather"]
+        assert gathers and len(gathers) == p_eng.agents.collectives
+        assert all(e["args"]["rung"] == "split" for e in gathers)
+        assert (sum(e["args"]["bytes"] for e in gathers)
+                == p_stats["comm_bytes_total"])
     # a run outside tracing() records nothing into the old tracer
     n = len(ptr)
     p_eng.run(ps0, 40, seed=2)
@@ -240,6 +252,8 @@ def test_untraced_run_reaches_no_trace_hook(ename, monkeypatch):
         monkeypatch.setattr(engine_base.WindowedEngine, name, refuse)
     monkeypatch.setattr(engine_wavefront.WavefrontEngine, "_trace_parts",
                         refuse)
+    for name in ("_trace_parts", "_trace_wave_comm", "_trace_execute_args"):
+        monkeypatch.setattr(engine_sharded.ShardedEngine, name, refuse)
     monkeypatch.setattr(engine_base, "block_all", refuse)
     monkeypatch.setattr(engine_sequential, "block_all", refuse)
     monkeypatch.setattr(PO.SpanTracer, "span", refuse)
