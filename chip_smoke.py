@@ -9,7 +9,7 @@ Run from the root of a checkout. Phases, each of which exits non-zero on
 failure:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels from src/repro_torch/csrc (six
+  2. builds the port's CUDA kernels from src/repro_torch/csrc (seven
      sources, one nvcc each, in parallel) and prints the build seconds;
   3. holds each kernel bit for bit against its plain PyTorch version on
      the card: conflict at W in {1, 37, 128, 129, 1000, 4096}, nr in
@@ -144,7 +144,34 @@ failure:
      fails. Prints the comm ladder per model (``comm_modes``,
      ``per_wave_comm_bytes``, ``window_halo_bytes``, ``full_state_bytes``,
      ``comm_reduction_vs_window_halo``);
- 12. the LM serving path at smollm-360m's full width (32 layers,
+ 12. the generators and the DES: (a) ``erdos_renyi(10^6, 4/10^6)``
+     with ``connect_isolated`` and ``barabasi_albert(10^6, 2)`` exact and
+     with ``chunk=4096``, built on the card, their seconds, edges and max
+     degree printed (the reference's BENCH_topology.json figures beside,
+     as a note), the attachment kernel's launches counted (set to 0 just
+     before each BA build, read just after: 1 exact, 245 chunked);
+     (b) the attachment kernel against its plain version (``ref.py``,
+     another algorithm over the same draws) at n = 10^5 and 10^6, exact
+     and chunked — targets and the whole endpoint multiset bit for bit —
+     timed at 10^6 per launch (CUDA events around each launch, enqueued
+     behind a sleep so no launch waits for the host; the chunked build's
+     serial warm-up and its frozen blocks apart; the call's wall time
+     beside) against the plain version and
+     its bound; the card's
+     ER graphs equal the CPU's builds at 10^5 and 10^6, its BA graphs
+     (exact and chunked) at 10^5; (c) SIS on the exact BA graph at
+     n = 10^6 (a task reads up to 1 + max degree ids) through
+     ``wavefront`` and ``wavefront_overlap`` at W = 4096 for 8 windows,
+     as phase 10 drives the hub graph: launches counted, the final
+     state against the oracle and a CPU run of the port (state and
+     stats), ms per window, both conflict kernels on a real window and
+     boundary bit for bit against their plain versions and timed beside
+     their bounds; (d) ``simulate_protocol`` on the ``des_model`` of
+     Axelrod (n = 10^4, F = 500, on ``watts_strogatz(10^4, 10, 0.1)``
+     built on the card) and of SIRS (n = 10^6 ring, k = 14, s = 50),
+     2,000 tasks at n_workers 1 and 4: each ``DESResult`` equal, field
+     for field, to the one of the same model built on the CPU;
+ 13. the LM serving path at smollm-360m's full width (32 layers,
      d_model 960, vocab 49152), random weights from the seed: 16 requests
      with prompt lengths 64-1536 drawn from the seed, 64 new tokens each,
      8 slots, max_len 2048, prefill chunks of 128. Checked (float32
@@ -175,7 +202,7 @@ failure:
      once per iteration; the one-shot prefill at T = 2048 through
      "pallas" against "chunked" — last-token logits and layer 0's state
      within RWKV_PREFILL_TOL. Timed (bf16): as for smollm;
- 13. times each kernel at W = 4096 on real windows (CUDA events, median
+ 14. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound, the levels kernel
      with its passes, and on random windows of density 0.3; the summary
      line holds SIS's conflict and levels times (the widest footprint of
@@ -189,7 +216,8 @@ failure:
      D 64, bf16, s0 = 0) beside its plain version (no library call
      computes the recurrence), bound by max(bytes / 3.35 TB/s, flops /
      67 TFLOP/s, the float32 CUDA-core rate). The kernels line lists
-     all seven kernels, SIRS at both subset sizes.
+     all eight kernels, SIRS at both subset sizes and the attachment
+     kernel exact and chunked (phase 12's times).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1516,13 +1544,19 @@ def hub_topology(torch):
 
 
 def drive_hub_sis(torch):
-    """SIS on the hub graph (a task reads 1 + max degree ids, 3,057 slots)
-    through wavefront and wavefront_overlap at W = 4096 for CHECK_WINDOWS
-    windows: launches counted, the final state against the oracle and a
-    CPU run of the port (state and stats). Then both conflict kernels on
-    a real window and boundary at that width: each equal to its plain
-    version bit for bit under both hazard rules, timed beside its bound.
-    Returns the launches."""
+    """SIS on the hub graph (a task reads 1 + max degree ids, 3,057
+    slots): ``drive_wide_sis`` on it. Returns the launches."""
+    topo, n_edges, build_s = hub_topology(torch)
+    return drive_wide_sis(torch, "hub SIS", topo, n_edges, build_s)
+
+
+def drive_wide_sis(torch, label, topo, n_edges, build_s):
+    """SIS on a graph of wide rows through wavefront and wavefront_overlap
+    at W = 4096 for CHECK_WINDOWS windows: launches counted, the final
+    state against the oracle and a CPU run of the port (state and stats).
+    Then both conflict kernels on a real window and boundary at that
+    width: each equal to its plain version bit for bit under both hazard
+    rules, timed beside its bound. Returns the launches."""
     from repro_torch.core import ProtocolConfig, run_engine, run_oracle
     from repro_torch.kernels.conflict import conflict as conflict_kernel
     from repro_torch.kernels.conflict.ops import (
@@ -1534,7 +1568,6 @@ def drive_hub_sis(torch):
     from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
 
-    topo, n_edges, build_s = hub_topology(torch)
     model = SISModel(topo)
     cpu_model = SISModel(topo.to("cpu"))
     state0 = model.init_state(prng.key(SEED + 1))
@@ -1542,7 +1575,7 @@ def drive_hub_sis(torch):
     total = CHECK_WINDOWS * WINDOW
     oracle = run_oracle(model, state0, total, seed=SEED, config=cfg)
     launches = {"conflict": 0, "levels": 0, "conflict_block": 0}
-    row = {"n_nodes": HUB_NODES, "edges": n_edges,
+    row = {"n_nodes": topo.n_nodes, "edges": n_edges,
            "max_degree": topo.max_degree, "read_slots": 1 + topo.max_degree,
            "window": WINDOW, "tasks": total, "build_seconds": build_s}
     for engine in ("wavefront", "wavefront_overlap"):
@@ -1561,17 +1594,17 @@ def drive_hub_sis(torch):
         want = {"conflict": nw, "levels": nw,
                 "conflict_block": nw - 1 if engine != "wavefront" else 0}
         if n != want:
-            fail(f"hub SIS {engine}: launches {n}, expected {want}")
+            fail(f"{label} {engine}: launches {n}, expected {want}")
         for k, v in n.items():
             launches[k] += v
         if not states_equal(out, oracle):
-            fail(f"hub SIS {engine} != sequential oracle on {total} tasks")
+            fail(f"{label} {engine} != sequential oracle on {total} tasks")
         cpu_out, cpu_stats = run_engine(
             cpu_model, {k: v.cpu() for k, v in state0.items()}, total,
             seed=SEED, config=cfg, engine=engine, device="cpu")
         if cpu_stats != stats or not states_equal(cpu_out, out):
-            fail(f"hub SIS {engine}: GPU run != CPU run of the port: {stats}"
-                 f" vs {cpu_stats}")
+            fail(f"{label} {engine}: GPU run != CPU run of the port: "
+                 f"{stats} vs {cpu_stats}")
         row[engine] = {"ms_per_window": secs / nw * 1e3,
                        "total_waves": stats["total_waves"],
                        "launches": n}
@@ -1588,7 +1621,7 @@ def drive_hub_sis(torch):
                 backend=b) for b in ("cuda", "torch")]}
         for kname, (got, want) in pairs.items():
             if not torch.equal(got, want):
-                fail(f"hub SIS: {kname} kernel != plain version on a real "
+                fail(f"{label}: {kname} kernel != plain version on a real "
                      f"window (W={WINDOW}, nr={reads.shape[1]}, "
                      f"strict={strict}): {int((got != want).sum())} cells")
         row[f"parity_cells_hit_strict_{strict}"] = {
@@ -1607,7 +1640,7 @@ def drive_hub_sis(torch):
     row["conflict_density"] = float(conf.sum()) / (WINDOW * (WINDOW - 1) / 2)
     del conf, cross
     row["used_read_slots_mean"] = float((reads >= 0).sum()) / WINDOW
-    log("hub SIS: " + json.dumps(row))
+    log(f"{label}: " + json.dumps(row))
     del topo, model, cpu_model, oracle
     torch.cuda.empty_cache()
     return launches
@@ -1955,6 +1988,274 @@ def drive_sharded_ranks(torch, tasks):
                 "seconds": max(rr[name][engine]["seconds"] for rr in ranks)}
         log(f"sharded {SHARDED_RANKS} ranks gloo {name} ({tasks} tasks): "
             + json.dumps(ladder))
+
+
+# ------------------------------------------- the generators and the DES
+GEN_NODES = 1_000_000
+GEN_M = 2
+GEN_CHUNK = 4096
+GEN_PARITY_NODES = 100_000
+#: the reference's build rows at n = 10^6 in BENCH_topology.json, taken
+#: under jax 0.4.37, whose random stream is not jax 0.9.0's (the port's):
+#: printed beside the card's, never a gate
+BENCH_TOPOLOGY_NOTE = {"barabasi_albert": {"n_edges": 1999997,
+                                           "max_degree": 2357},
+                       "erdos_renyi": {"n_edges": 1996103, "max_degree": 17}}
+DES_TASKS = 2000
+DES_WORKERS = (1, 4)
+DES_AXELROD = {"n_agents": 10_000, "n_features": 500}
+#: ops of one Threefry-2x32 hash on the card: 20 mixing steps of an add, a
+#: rotate and a xor, five key injections of three adds, the key's parity
+#: word (two xors) and the first two adds
+HASH_OPS = 79
+#: ops of one rejection round: six hashes, the bits' two xors, three
+#: remainders (~15 ops each: a 32-bit division), a multiply and an add
+ROUND_OPS = 6 * HASH_OPS + 2 + 3 * 15 + 2
+#: ops of an arrival besides its rounds: the fold_in and the multiplier's
+#: two remainders
+ARRIVAL_OPS = HASH_OPS + 2 * 15
+#: the serial path's dependent chain per round on one thread: three hashes
+#: one after another (each 20 steps of 3 dependent ops plus 5 injections
+#: of 2), the remainders (~3 x 15) and a load from L2, in cycles (~4 a
+#: dependent integer op, ~260 for the load), at the H100's 1.98 GHz
+LATENCY_ROUND_S = (3 * (20 * 3 + 5 * 2) * 4 + 3 * 15 * 4 + 260) / 1.98e9
+#: the sleep (~0.1 s at 1.98 GHz) that the timed attachment launches are
+#: enqueued behind: far above the host's dispatch of 245 launches
+ATTACH_SLEEP_CYCLES = 200_000_000
+
+
+def fenced_call(torch, fn):
+    """(fn(), seconds), fenced by synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def attach_device_ms(torch, fn):
+    """The device ms of each attachment kernel launch in one call of fn,
+    in launch order: CUDA events around each launch of the wrapper, all
+    enqueued behind a sleep on the card, so that no launch waits for the
+    host's dispatch (fails unless the sleep outlasts the host's
+    enqueueing)."""
+    from repro_torch.kernels.attach import ops as attach_ops
+
+    launch = attach_ops.attach_cuda
+    pairs = []
+
+    def timed(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    slept = torch.cuda.Event()
+    torch.cuda.synchronize()
+    attach_ops.attach_cuda = timed
+    try:
+        torch.cuda._sleep(ATTACH_SLEEP_CYCLES)
+        slept.record()
+        fn()
+        behind = not slept.query()
+    finally:
+        attach_ops.attach_cuda = launch
+    torch.cuda.synchronize()
+    if not behind:
+        fail("attachment timing: the host's dispatch outlasted the sleep")
+    return [start.elapsed_time(end) for start, end in pairs]
+
+
+def drive_generators(torch):
+    """Phase 12 (a)-(b): the generators on the card — erdos_renyi(10^6,
+    4/10^6) with connect_isolated, barabasi_albert(10^6, 2) exact and
+    chunked, the attachment kernel's launches counted (counters at 0
+    just before each build, read just after) — against the CPU's builds
+    (ER at 10^5 and 10^6, BA at 10^5) and the kernel against its plain
+    version at 10^5 and 10^6, exact and chunked. Returns (the exact BA
+    graph, its build row, the kernel's attach rows)."""
+    from repro_torch.kernels.attach import attach as attach_kernel
+    from repro_torch.kernels.attach import ref as attach_ref
+    from repro_torch.topology import (
+        barabasi_albert,
+        connect_isolated,
+        erdos_renyi,
+    )
+    from repro_torch.topology.generators import attachment
+    from repro_torch.utils import prng
+
+    key = prng.key(SEED)
+    k_er, k_iso = prng.split(key).unbind(0)
+
+    def er(n, dev):
+        return connect_isolated(erdos_renyi(n, 4 / n, k_er.to(dev),
+                                            device=dev), k_iso.to(dev))
+
+    builds, graphs = {}, {}
+    # (a) the builds at 10^6, the main path of the phase
+    topo, secs = fenced_call(torch, lambda: er(GEN_NODES, DEVICE))
+    graphs["erdos_renyi"] = topo
+    builds["erdos_renyi"] = {"seconds": secs, "edges": int(topo.n_edges),
+                             "max_degree": topo.max_degree}
+    arrivals = GEN_NODES - GEN_M - 1
+    for name, chunk in (("barabasi_albert", None),
+                        ("barabasi_albert chunk=4096", GEN_CHUNK)):
+        attach_kernel.launches = 0
+        topo, secs = fenced_call(torch, lambda: barabasi_albert(
+            GEN_NODES, GEN_M, key, chunk=chunk))
+        n = attach_kernel.launches
+        want = 1 if chunk is None else 1 + -(-(arrivals - chunk) // chunk)
+        if n != want:
+            fail(f"{name}: {n} attachment launches, expected {want}")
+        graphs[name] = topo
+        builds[name] = {"seconds": secs, "edges": int(topo.n_edges),
+                        "max_degree": topo.max_degree, "launches": n}
+    log(f"generators on the card, n = {GEN_NODES}: " + json.dumps(builds)
+        + "; BENCH_topology.json (jax 0.4.37, CPU, another stream; a "
+        "note, not a gate): " + json.dumps(BENCH_TOPOLOGY_NOTE))
+    # (b) the kernel against its plain version, then the card's graphs
+    # against the CPU's
+    rows = []
+    for n in (GEN_PARITY_NODES, GEN_NODES):
+        for chunk in (None, GEN_CHUNK):
+            (kernel, kernel_ends), wall_s = fenced_call(
+                torch, lambda: attachment(n, GEN_M, key, chunk=chunk,
+                                          backend="cuda"))
+            before = attach_ref.rounds_drawn
+            (plain, plain_ends), plain_s = fenced_call(
+                torch, lambda: attachment(n, GEN_M, key, chunk=chunk,
+                                          backend="torch"))
+            rounds = attach_ref.rounds_drawn - before
+            if not (torch.equal(kernel, plain)
+                    and torch.equal(kernel_ends, plain_ends)):
+                fail(f"attach kernel != plain version at n = {n}, chunk = "
+                     f"{chunk}: {int((kernel != plain).sum())} targets")
+            del plain, plain_ends
+            if n != GEN_NODES:
+                continue
+            name = ("barabasi_albert" if chunk is None
+                    else "barabasi_albert chunk=4096")
+            each = attach_device_ms(torch, lambda: attachment(
+                n, GEN_M, key, chunk=chunk, backend="cuda"))
+            launches = builds[name]["launches"]
+            if len(each) != launches:
+                fail(f"{name}: {len(each)} attachment launches timed, "
+                     f"the counter {launches}")
+            count = kernel.shape[0]
+            # the key and the seed's ends read; every slab and target
+            # written; the rounds this run's draws took
+            nbytes = 16 + 4 * (GEN_M + 1) * GEN_M + 12 * GEN_M * count
+            ops = ARRIVAL_OPS * count + ROUND_OPS * rounds
+            # per launch, as every row of the kernels line: the build's
+            # device time, bytes, operations and plain time over its
+            # launches (the chunked build's first launch is the serial
+            # warm-up of C arrivals, the rest one frozen block each)
+            row = kernel_row(
+                "attach" if chunk is None else "attach chunk=4096",
+                "src/repro_torch/csrc/attach.cu",
+                "src/repro/topology/generators.py:216",
+                launches, 0, sum(each) / launches,
+                plain_s * 1e3 / launches, nbytes / launches,
+                ops / launches)
+            latency = (LATENCY_ROUND_S * rounds if chunk is None else None)
+            blocks = sorted(each[1:])
+            log(f"kernel times {row['name']} n={n}: " + json.dumps(
+                {"ms_per_launch": row["ms"], "launches": launches,
+                 "device_ms_total": sum(each),
+                 "attachment_wall_ms": wall_s * 1e3,
+                 "warm_up_ms": None if chunk is None else each[0],
+                 "block_ms_median": blocks[len(blocks) // 2]
+                 if blocks else None,
+                 "block_ms_max": blocks[-1] if blocks else None,
+                 "plain_ms_per_launch": row["plain_ms"],
+                 "plain_ms_total": plain_s * 1e3, "arrivals": count,
+                 "rounds": rounds, "rounds_per_arrival": rounds / count,
+                 "bytes": nbytes, "ops": ops,
+                 "bound_ms_per_launch": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "serial_latency_ms": None if latency is None
+                 else latency * 1e3}))
+            rows.append(row)
+        del kernel, kernel_ends
+    torch.cuda.empty_cache()
+    checked = {}
+    for n in (GEN_PARITY_NODES, GEN_NODES):
+        card = graphs["erdos_renyi"] if n == GEN_NODES else er(n, DEVICE)
+        cpu = er(n, "cpu")
+        if not (torch.equal(card.neighbors.cpu(), cpu.neighbors)
+                and torch.equal(card.degrees.cpu(), cpu.degrees)):
+            fail(f"erdos_renyi({n}) on the card != the CPU's build")
+        checked[f"erdos_renyi {n}"] = cpu.max_degree
+    for chunk in (None, GEN_CHUNK):
+        card = barabasi_albert(GEN_PARITY_NODES, GEN_M, key, chunk=chunk)
+        cpu = barabasi_albert(GEN_PARITY_NODES, GEN_M, key.cpu(),
+                              chunk=chunk, device="cpu")
+        if not (torch.equal(card.neighbors.cpu(), cpu.neighbors)
+                and torch.equal(card.degrees.cpu(), cpu.degrees)):
+            fail(f"barabasi_albert({GEN_PARITY_NODES}, chunk={chunk}) on "
+                 "the card != the CPU's build")
+        checked[f"barabasi_albert {GEN_PARITY_NODES} chunk={chunk}"] = (
+            cpu.max_degree)
+    log("generators: the card's graphs equal the CPU's (max degree): "
+        + json.dumps(checked))
+    ba = graphs.pop("barabasi_albert")
+    del graphs
+    torch.cuda.empty_cache()
+    return ba, builds["barabasi_albert"], rows
+
+
+def drive_des(torch):
+    """Phase 12 (d): simulate_protocol on the des_model of Axelrod (n =
+    10^4, F = 500, on a Watts–Strogatz graph built on the card) and of
+    SIRS (n = 10^6 ring, k = 14, s = 50), DES_TASKS tasks at each
+    n_workers of DES_WORKERS; every DESResult equal, field for field, to
+    the one of the same model built on the CPU."""
+    import dataclasses
+
+    from repro_torch.core import ProtocolConfig, simulate_protocol
+    from repro_torch.mabs import (
+        AxelrodConfig,
+        AxelrodModel,
+        SIRConfig,
+        SIRModel,
+    )
+    from repro_torch.topology import watts_strogatz
+    from repro_torch.utils import prng
+
+    key = prng.key(SEED)
+    ax_cfg = AxelrodConfig(**DES_AXELROD)
+    sir_cfg = SIRConfig(n_agents=N_NODES, k=14, subset_size=50)
+    n = ax_cfg.n_agents
+    models = {
+        "axelrod": (
+            AxelrodModel(ax_cfg, topology=watts_strogatz(
+                n, DEGREE, REWIRE, key)),
+            AxelrodModel(ax_cfg, topology=watts_strogatz(
+                n, DEGREE, REWIRE, key.cpu(), device="cpu"))),
+        "sirs": (SIRModel(sir_cfg), SIRModel(sir_cfg, device="cpu")),
+    }
+    rows = {}
+    for name, (card, cpu) in models.items():
+        for workers in DES_WORKERS:
+            cfg = ProtocolConfig(n_workers=workers)
+            t0 = time.perf_counter()
+            got = simulate_protocol(card.des_model(), DES_TASKS, config=cfg)
+            secs = time.perf_counter() - t0
+            want = simulate_protocol(cpu.des_model(), DES_TASKS, config=cfg)
+            if dataclasses.asdict(got) != dataclasses.asdict(want):
+                fail(f"DES {name} n_workers={workers}: the card-built "
+                     f"model's result != the CPU-built one's: {got} vs "
+                     f"{want}")
+            rows[f"{name} n_workers={workers}"] = {
+                "makespan": got.makespan, "events": got.events,
+                "max_chain_len": got.max_chain_len,
+                "executed_per_worker": got.executed_per_worker,
+                "host_seconds": secs}
+    log(f"DES, {DES_TASKS} tasks, equal to the CPU-built models': "
+        + json.dumps(rows))
 
 
 # ----------------------------------------------------------- kernel times
@@ -3041,7 +3342,7 @@ def main(argv=None) -> None:
 
     t0 = time.perf_counter()
     build_logs = _build.build(["conflict", "levels", "axelrod", "sir",
-                               "flash", "wkv6"])
+                               "flash", "wkv6", "attach"])
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(build_logs) or 'cached'})")
     for name, text in build_logs.items():
@@ -3110,6 +3411,14 @@ def main(argv=None) -> None:
     drive_sharded_ranks(torch, min(SHARDED_RANK_WINDOWS * WINDOW, tasks))
     log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    ba, ba_build, attach_rows = drive_generators(torch)
+    ba_launches = drive_wide_sis(torch, "SIS on BA", ba, ba_build["edges"],
+                                 ba_build["seconds"])
+    del ba
+    drive_des(torch)
+    log(f"generators and DES: {time.perf_counter() - t0:.1f} s")
+
     lm_launches, rwkv_launches = drive_lm(torch)
 
     log("launches barrier path: " + json.dumps(launches)
@@ -3117,11 +3426,12 @@ def main(argv=None) -> None:
         + "; task-size phase: " + json.dumps(wide_launches)
         + "; hub SIS: " + json.dumps(hub_launches)
         + "; sharded phase: " + json.dumps(sharded_launches)
+        + "; SIS on BA: " + json.dumps(ba_launches)
         + "; serving path: " + json.dumps(lm_launches)
         + "; rwkv serving path: " + json.dumps(rwkv_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
              + hub_launches.get(k, 0) + sharded_launches[k]
-             for k, v in ov_launches.items()}
+             + ba_launches.get(k, 0) for k, v in ov_launches.items()}
     total["levels"] += (lm_launches["wave_levels"]
                         + rwkv_launches["wave_levels"])
     rows = kernel_rows(torch, models, ov_models, total, errs)
@@ -3134,6 +3444,7 @@ def main(argv=None) -> None:
     rows.append(wkv6_row(torch, rwkv_launches["wkv6"], errs["wkv6"]))
     rows.append(flash_row(torch, lm_launches["flash_attention"],
                           errs["flash_attention"]))
+    rows += attach_rows
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

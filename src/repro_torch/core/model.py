@@ -168,3 +168,14 @@ class MABSModel(abc.ABC):
                mask: torch.Tensor) -> State:
         """``execute_wave`` with the window's draws given."""
         return self.execute_wave(state, recipes, mask)
+
+    # ---- cost model hooks for the discrete-event protocol simulator ----
+
+    def task_cost(self, recipes: Recipes, index: int) -> float:
+        """Predicted execution cost (seconds) of one task, for
+        core/workersim.py. Default: uniform unit cost."""
+        return 1.0
+
+    def creation_cost(self) -> float:
+        """Predicted cost of the creation part of one task."""
+        return 0.05

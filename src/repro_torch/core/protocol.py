@@ -9,19 +9,28 @@ cross-window overlap), and the sharded engines ``sharded``,
 group: pass ``group=``, or initialize the default group, or run a world
 of one). All run the identical task stream and are bit-exact against
 each other under the strict hazard rule. Entry points run on the card
-unless ``device`` names another.
+unless ``device`` names another. ``simulate_protocol`` runs the
+paper-faithful discrete-event simulator (core/workersim.py) on a model's
+``des_model`` adapter, on the host.
 
-``simulate_protocol`` (the discrete-event simulator) is not ported yet,
-nor are its ``ProtocolConfig`` fields (``n_workers``, ``tasks_per_cycle``).
+The paper's "choices in applying the protocol" (§3.4) map to:
+  chain granularity  -> the model's task definition (e.g. agents per subset)
+  task depth         -> what create_tasks precomputes (ids + PRNG binding)
+  workflow params    -> n_workers, C (DES); window size + engine choice +
+                        cross-window overlap (the windowed engines)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from repro_torch.core.workersim import DESCosts, DESModel, ProtocolSimulator
+
 
 @dataclass
 class ProtocolConfig:
     window: int = 256          # recipe-window size (windowed engines)
+    n_workers: int = 4         # n  (DES engine)
+    tasks_per_cycle: int = 6   # C  (DES engine; paper keeps C=6)
     strict: bool = True        # full hazard closure vs paper's record rule
     engine: str = "wavefront"  # registry name (repro_torch.engine)
     #: cross-window overlap knob: True lets window k+1's head waves ride
@@ -73,3 +82,20 @@ def run_oracle(model, state, total_tasks: int, *, seed: int = 0,
     cfg = config or ProtocolConfig()
     return run_sequential(model, state, total_tasks, seed=seed,
                           window=cfg.window, device=device)
+
+
+def simulate_protocol(des_model: DESModel, total_tasks: int, *,
+                      config: ProtocolConfig | None = None,
+                      costs: DESCosts | None = None):
+    """Run ``total_tasks`` through the discrete-event simulator with
+    ``config.n_workers`` workers and ``config.tasks_per_cycle`` (C);
+    returns its ``DESResult``."""
+    cfg = config or ProtocolConfig()
+    sim = ProtocolSimulator(
+        des_model,
+        n_workers=cfg.n_workers,
+        total_tasks=total_tasks,
+        tasks_per_cycle=cfg.tasks_per_cycle,
+        costs=costs,
+    )
+    return sim.run()

@@ -60,3 +60,15 @@ def window_schedule_stats(model, recipes, valid: torch.Tensor, *,
         "conflict_density": float(conf.sum())
         / max(1, lv.size * (lv.size - 1) / 2),
     }
+
+
+def __getattr__(name):  # PEP 562: lazy, so core and engine import no cycle
+    if name == "WavefrontRunner":
+        from repro_torch.engine.wavefront import WavefrontRunner
+
+        return WavefrontRunner
+    if name == "run_sequential":
+        from repro_torch.engine.sequential import run_sequential
+
+        return run_sequential
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -34,6 +34,7 @@ from repro_torch.engine.sharded import (
 from repro_torch.engine.wavefront import (
     WavefrontEngine,
     WavefrontOverlapEngine,
+    WavefrontRunner,
 )
 
 __all__ = [
@@ -47,6 +48,7 @@ __all__ = [
     "run_sequential",
     "WavefrontEngine",
     "WavefrontOverlapEngine",
+    "WavefrontRunner",
     "ShardedEngine",
     "ShardedWindowHaloEngine",
     "ShardedReplicatedEngine",

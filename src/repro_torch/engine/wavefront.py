@@ -77,3 +77,7 @@ class WavefrontOverlapEngine(WavefrontEngine):
 
     name = "wavefront_overlap"
     default_overlap = True
+
+
+#: The reference's name for the pre-registry runner class.
+WavefrontRunner = WavefrontEngine

@@ -28,9 +28,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core.model import MABSModel, scatter_rows
+from repro_torch.core.workersim import DESModel
 from repro_torch.kernels.axelrod import axelrod_wave
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -141,3 +143,61 @@ class AxelrodModel(MABSModel):
 
     def execute_wave(self, state, recipes, mask):
         return self._apply(state, recipes, self._draws(recipes), mask)
+
+    # ------------------------------------------------- DES model adapter
+    def des_model(self, *, seed: int = 0, exec_cost=None, create_cost=None,
+                  strict: bool = True) -> DESModel:
+        """Host-side adapter for the protocol simulator (the reference's,
+        draw for draw). Recipes are generated with NumPy, identically
+        distributed to create_tasks; the neighbour table and degrees are
+        copied to the host once, here."""
+        cfg = self.cfg
+        rs = np.random.RandomState(seed)
+        topo_nbrs = topo_deg = None
+        if self.topology is not None:
+            topo_nbrs = self.topology.neighbors.cpu().numpy()
+            topo_deg = self.topology.degrees.cpu().numpy()
+
+        cache: dict[int, tuple[int, int]] = {}
+
+        def recipes_fn(i: int):
+            if i not in cache:
+                src = int(rs.randint(cfg.n_agents))
+                if topo_nbrs is None:
+                    tgt = int(rs.randint(cfg.n_agents - 1))
+                    if tgt >= src:
+                        tgt += 1
+                else:
+                    tgt = int(topo_nbrs[src, rs.randint(topo_deg[src])])
+                cache[i] = (src, tgt)
+            return cache[i]
+
+        # record: (targets_seen, sources_seen) as Python sets
+        def record_new():
+            return (set(), set())
+
+        def record_add(rec, recipe):
+            tgts, srcs = rec
+            tgts.add(recipe[1])
+            srcs.add(recipe[0])
+            return rec
+
+        def depends(rec, recipe):
+            tgts, srcs = rec
+            src, tgt = recipe
+            d = (src in tgts) or (tgt in tgts)
+            if strict:
+                d = d or (tgt in srcs)
+            return d
+
+        c_exec = exec_cost if exec_cost is not None else (
+            lambda r: 1e-7 * cfg.n_features + 5e-7)
+        c_create = create_cost if create_cost is not None else (lambda: 3e-7)
+        return DESModel(
+            recipes_fn=recipes_fn,
+            exec_cost_fn=c_exec,
+            create_cost_fn=c_create,
+            record_new=record_new,
+            record_add=record_add,
+            depends=depends,
+        )

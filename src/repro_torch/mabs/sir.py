@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.model import MABSModel, scatter_rows
+from repro_torch.core.workersim import DESModel
 from repro_torch.kernels.sir import sir_wave
 from repro_torch.topology import Topology, ring
 from repro_torch.utils import prng
@@ -244,3 +245,57 @@ class SIRModel(MABSModel):
                                   m, cfg.subset_size)
         nxt = self._transition(state["states"], agents, u).reshape(-1)
         return {"states": nxt, "new_states": nxt.clone()}
+
+    # ------------------------------------------------- DES model adapter
+    def des_model(self, *, exec_cost=None, create_cost=None,
+                  strict: bool = True) -> DESModel:
+        """Host-side adapter for the protocol simulator (the reference's).
+        The block graph's neighbours are copied to the host once, here."""
+        cfg = self.cfg
+        m = cfg.n_subsets
+        block_nbrs = self.block_topo.neighbors.cpu().numpy()
+
+        def recipes_fn(i: int):
+            step, within = divmod(i, 2 * m)
+            ttype, subset = (1, within - m) if within >= m else (0, within)
+            return (subset, ttype)
+
+        def record_new():
+            return (set(), set())   # (computes_seen, commits_seen) subsets
+
+        def record_add(rec, recipe):
+            computes, commits = rec
+            subset, ttype = recipe
+            (commits if ttype else computes).add(subset)
+            return rec
+
+        def adjacent(b, seen: set) -> bool:
+            row = block_nbrs[b]
+            return any(int(b2) in seen for b2 in row[row >= 0])
+
+        def depends(rec, recipe):
+            computes, commits = rec
+            subset, ttype = recipe
+            if ttype == 1:  # commit
+                d = subset in commits if strict else False
+                if strict:
+                    return d or adjacent(subset, computes)
+                return subset in computes
+            # compute
+            d = adjacent(subset, commits)
+            if strict:
+                d = d or (subset in computes)
+            return d
+
+        c_exec = exec_cost if exec_cost is not None else (
+            lambda r: (2e-8 * cfg.k if r[1] == 0 else 4e-9)
+            * cfg.subset_size + 5e-7)
+        c_create = create_cost if create_cost is not None else (lambda: 3e-7)
+        return DESModel(
+            recipes_fn=recipes_fn,
+            exec_cost_fn=c_exec,
+            create_cost_fn=c_create,
+            record_new=record_new,
+            record_add=record_add,
+            depends=depends,
+        )

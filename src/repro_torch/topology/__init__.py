@@ -5,14 +5,18 @@
                    ``from_edges`` constructor, the dense diagnostics
                    helpers (``adjacency``/``from_adjacency``)
   generators.py  — ring-k, 2D lattice (von Neumann / Moore),
-                   Watts-Strogatz, complete, ``connect_isolated``
+                   Watts-Strogatz, Erdos-Renyi, Barabasi-Albert (the
+                   attachment kernel on the card), complete,
+                   ``connect_isolated``
 
 Port of ``repro.topology``; the random families draw the reference's
 exact streams, so the same key gives the same table.
 """
 from repro_torch.topology.generators import (
+    barabasi_albert,
     complete,
     connect_isolated,
+    erdos_renyi,
     lattice2d,
     ring,
     watts_strogatz,
@@ -34,6 +38,17 @@ __all__ = [
     "ring",
     "lattice2d",
     "watts_strogatz",
+    "erdos_renyi",
+    "barabasi_albert",
     "complete",
     "connect_isolated",
 ]
+
+GENERATORS = {
+    "ring": ring,
+    "lattice2d": lattice2d,
+    "watts_strogatz": watts_strogatz,
+    "erdos_renyi": erdos_renyi,
+    "barabasi_albert": barabasi_albert,
+    "complete": complete,
+}

@@ -9,13 +9,20 @@ same key yields the reference's neighbor table exactly. Nothing allocates
 Conventions: undirected simple graphs (no self loops, no multi-edges);
 neighbor rows ascend by node id; padding id is -1 (graph.PAD).
 
-``erdos_renyi`` and ``barabasi_albert`` are not ported yet (tests carry
-the reference's graphs across through ``bridge.topology_from_numpy``).
+``erdos_renyi`` draws its edge count with ``prng.binomial`` (the
+reference's ``jax.random.binomial``) and keeps the first distinct pairs of
+a candidate stream. ``barabasi_albert``'s arrivals are sequential (the
+reference's ``lax.scan``): on the card they run in the hand-written
+attachment kernel (``kernels/attach``), on the CPU through its plain
+version.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels.attach import attach_arrivals
 from repro_torch.topology.graph import (
     Topology,
     _check_dense,
@@ -25,8 +32,8 @@ from repro_torch.topology.graph import (
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
-__all__ = ["ring", "lattice2d", "watts_strogatz", "connect_isolated",
-           "complete"]
+__all__ = ["ring", "lattice2d", "watts_strogatz", "erdos_renyi",
+           "barabasi_albert", "complete", "connect_isolated"]
 
 
 def connect_isolated(topo: Topology, key: torch.Tensor) -> Topology:
@@ -115,6 +122,122 @@ def watts_strogatz(n: int, k: int, beta: float, key: torch.Tensor, *,
     edges = torch.stack([v.expand(n, half).reshape(-1), tgt.reshape(-1)],
                         dim=1)
     return from_edges(n, edges, max_degree=max_degree, device=dev)
+
+
+def erdos_renyi(n: int, p: float, key: torch.Tensor, *,
+                max_degree: int | None = None, device=None) -> Topology:
+    """Sparse Erdos-Renyi: edge count E ~ Binomial(n(n-1)/2, p), then the
+    first E *distinct* pairs of a uniform candidate stream (sequential
+    draw-ignore-repeats is uniform sampling without replacement, so this
+    realizes G(n, p)). O(E log E); nothing is [n, n]. E stays a device
+    scalar: no host sync beyond ``from_edges``'s.
+    """
+    dev = resolve_device(device)
+    key = key.to(dev)
+    n_pairs = n * (n - 1) // 2
+    mean = n_pairs * p
+    # target unique count: mean + 6 sigma covers the binomial tail (the
+    # reference's host arithmetic, in doubles)
+    target = mean + 6.0 * math.sqrt(max(mean * (1.0 - p), 1.0)) + 16
+    target = min(target, float(n_pairs)) if n_pairs else 1.0
+    p32 = torch.full((), p, dtype=torch.float32, device=dev)
+    if target >= 0.98 * n_pairs:
+        # near-complete regime: enumerate the pairs and Bernoulli each
+        i, j = torch.triu_indices(n, n, 1, device=dev)
+        live = prng.uniform(key, (n_pairs,)) < p32
+        edges = torch.stack([torch.where(live, i, -1), j], dim=1)
+        return from_edges(n, edges, max_degree=max_degree, device=dev)
+    # candidate stream sized by the coupon-collector expectation of draws
+    # needed to see `target` distinct pairs
+    frac = target / n_pairs
+    cap = int(-n_pairs * math.log1p(-frac) * 1.05 + 64)
+    k_cnt, k_a, k_b = prng.split(key, 3).unbind(0)
+    e = prng.binomial(k_cnt, float(n_pairs), p32).to(torch.int32)
+    a = prng.randint(k_a, (cap,), 0, n).to(torch.int64)
+    b = prng.randint(k_b, (cap,), 0, n - 1).to(torch.int64)
+    b = torch.where(b >= a, b + 1, b)         # uniform over ordered pairs
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    # first occurrence of each pair in *draw order*: the reference's
+    # lexsort((idx, hi, lo)) is a stable sort of lo·n + hi (< 2^62)
+    order = torch.sort(lo * n + hi, stable=True).indices
+    ls, lh = lo[order], hi[order]
+    head = torch.ones(cap, dtype=torch.bool, device=dev)
+    head[1:] = (ls[1:] != ls[:-1]) | (lh[1:] != lh[:-1])
+    first = torch.zeros(cap, dtype=torch.bool, device=dev)
+    first[order] = head
+    live = first & (torch.cumsum(first, 0) - 1 < e)  # first e distinct
+    edges = torch.stack([torch.where(live, lo, -1), hi], dim=1)
+    return from_edges(n, edges, max_degree=max_degree, device=dev)
+
+
+def barabasi_albert(n: int, m: int, key: torch.Tensor, *,
+                    max_degree: int | None = None, chunk: int | None = None,
+                    device=None) -> Topology:
+    """Preferential attachment (Barabasi & Albert 1999): a complete seed of
+    m+1 nodes; each arriving node t attaches to m distinct nodes drawn
+    from the edge-endpoint multiset ``ends`` (probability proportional to
+    degree, duplicates rejected), its draws keyed by ``fold_in(key, t)``.
+
+    ``chunk=None`` is the exact sequential realization: the multiset grows
+    after every arrival (one thread of the attachment kernel walks the
+    arrivals on the card). ``chunk=C`` freezes the multiset per block of C
+    arrivals after an exact warm-up of the first C; a block's arrivals
+    draw in parallel (one launch per block). The last block may hold
+    phantom arrivals (t >= n): they draw and write slab entries past the
+    fill that are never read, and their edges are dropped. ``chunk=1``
+    equals ``chunk=None``.
+    """
+    if not 1 <= m < n:
+        raise ValueError("need 1 <= m < n")
+    dev = resolve_device(device)
+    seed_sz = m + 1
+    si, sj = torch.triu_indices(seed_sz, seed_sz, 1, device=dev)
+    tgts, _ = attachment(n, m, key.to(dev), chunk=chunk)
+    ts = torch.arange(seed_sz, seed_sz + tgts.shape[0], dtype=torch.int64,
+                      device=dev).repeat_interleave(m)
+    new_edges = torch.stack([ts, tgts.reshape(-1).long()], dim=1)
+    valid = torch.cat([torch.ones(len(si), dtype=torch.bool, device=dev),
+                       ts < n])                     # drop the phantoms
+    return from_edges(n, torch.cat([torch.stack([si, sj], dim=1),
+                                    new_edges]),
+                      valid=valid, max_degree=max_degree, device=dev)
+
+
+def attachment(n: int, m: int, key: torch.Tensor, *,
+               chunk: int | None = None,
+               backend: str | None = None) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """``barabasi_albert``'s arrivals on the key's device: (targets
+    [arrivals (+ phantoms), m] int32, the endpoint multiset ``ends``).
+    ``backend`` goes to ``attach_arrivals`` (the card's parity check
+    runs the plain version with it)."""
+    dev = key.device
+    seed_sz = m + 1
+    si, sj = torch.triu_indices(seed_sz, seed_sz, 1, device=dev)
+    n_seed_ends = seed_sz * m              # both ends of the seed's edges
+    n_arrivals = n - seed_sz
+    if chunk is None:
+        warm, c, n_blocks = n_arrivals, 1, 0
+    else:
+        c = int(chunk)
+        if c < 1:
+            raise ValueError("chunk must be >= 1")
+        warm = min(n_arrivals, c)
+        n_blocks = -(-(n_arrivals - warm) // c)
+    # endpoint slots: the padded capacity holds the phantom arrivals' slabs
+    cap = n_seed_ends + 2 * m * (warm + n_blocks * c)
+    ends = torch.zeros(cap, dtype=torch.int32, device=dev)
+    ends[:n_seed_ends] = torch.cat([si, sj])
+    fill = n_seed_ends
+    tgts = [attach_arrivals(key, ends, first=seed_sz, count=warm, fill=fill,
+                            m=m, backend=backend)]
+    fill += 2 * m * warm
+    for blk in range(n_blocks):
+        tgts.append(attach_arrivals(key, ends, first=seed_sz + warm + blk * c,
+                                    count=c, fill=fill, m=m, frozen=True,
+                                    backend=backend))
+        fill += 2 * m * c
+    return torch.cat(tgts), ends
 
 
 def complete(n: int, *, device=None) -> Topology:

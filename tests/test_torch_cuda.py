@@ -1,6 +1,7 @@
 """The port on the card: the hand-written kernels against their plain
-PyTorch versions, bit for bit, small wavefront and wavefront_overlap
-runs through them against the port's oracle and its CPU run, and a traced
+PyTorch versions, bit for bit (the attachment kernel also through
+``barabasi_albert`` against the CPU build), small wavefront and
+wavefront_overlap runs through them against the port's oracle and its CPU run, and a traced
 run against the untraced one. Every test is marked ``cuda``
 and skips without a card. The file imports no JAX, so it runs on a GPU
 machine that has only PyTorch (``--noconftest``: tests/conftest.py
@@ -16,6 +17,8 @@ torch.set_num_threads(1)  # the suite runs in parallel worker processes
 from conflict_cases import KINDS, block, footprint  # noqa: E402
 
 from repro_torch.core import ProtocolConfig, run_engine, run_oracle  # noqa: E402
+from repro_torch.kernels.attach import attach_arrivals  # noqa: E402
+from repro_torch.kernels.attach import attach as attach_kernel  # noqa: E402
 from repro_torch.kernels.axelrod import axelrod as axelrod_kernel  # noqa: E402
 from repro_torch.kernels.axelrod import axelrod_wave  # noqa: E402
 from repro_torch.kernels.conflict import conflict as conflict_kernel  # noqa: E402
@@ -36,7 +39,11 @@ from repro_torch.mabs import (  # noqa: E402
     VoterModel,
 )
 from repro_torch.obs import tracing, validate_chrome_trace  # noqa: E402
-from repro_torch.topology import watts_strogatz  # noqa: E402
+from repro_torch.topology import (  # noqa: E402
+    barabasi_albert,
+    erdos_renyi,
+    watts_strogatz,
+)
 from repro_torch.utils import prng, timing  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -837,3 +844,75 @@ def test_sharded_world_of_one_on_card_equals_wavefront(cuda_device, engine):
                                                             seed=6)
     assert stats["n_devices"] == 1 and stats["halo_split"]
     assert torch.equal(out["states"], wf["states"])
+
+
+# ------------------------------------------------- the attachment kernel
+def _grown_ends(m, arrivals, device):
+    """A multiset after a seed clique and ``arrivals`` serial arrivals
+    (the plain version on the CPU), with room for 600 more."""
+    seed = torch.triu_indices(m + 1, m + 1, 1)
+    fill = (m + 1) * m
+    ends = torch.zeros(fill + 2 * m * (arrivals + 600), dtype=torch.int32)
+    ends[:fill] = torch.cat([seed[0], seed[1]])
+    attach_arrivals(prng.key(2, device="cpu"), ends, first=m + 1,
+                    count=arrivals, fill=fill, m=m)
+    return ends.to(device), fill + 2 * m * arrivals, m + 1 + arrivals
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 3, 9])
+def test_attach_kernel_matches_plain(cuda_device, m, frozen):
+    """600 arrivals after 300, serial or as one frozen block: the targets
+    and the whole multiset equal the plain version's (m = 9: each
+    candidate checked against up to eight kept targets)."""
+    ends, fill, first = _grown_ends(m, 300, cuda_device)
+    key = prng.key(4, device=cuda_device)
+    plain_ends = ends.clone()
+    before = attach_kernel.launches
+    got = attach_arrivals(key, ends, first=first, count=600, fill=fill,
+                          m=m, frozen=frozen, backend="cuda")
+    assert attach_kernel.launches == before + 1
+    want = attach_arrivals(key, plain_ends, first=first, count=600,
+                           fill=fill, m=m, frozen=frozen, backend="torch")
+    assert attach_kernel.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(ends, plain_ends)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("n,chunk", [(30, None), (2000, None), (2000, 16),
+                                     (2000, 64), (20000, 1024)])
+def test_barabasi_albert_on_card_equals_cpu(cuda_device, n, m, chunk):
+    """The exact build is one launch; the chunked one a launch for the
+    warm-up and one per block (the last with phantom arrivals)."""
+    key = prng.key(5, device=cuda_device)
+    before = attach_kernel.launches
+    card = barabasi_albert(n, m, key, chunk=chunk)
+    arrivals = n - m - 1
+    blocks = 0 if chunk is None else -(-(arrivals - min(arrivals, chunk))
+                                       // chunk)
+    assert attach_kernel.launches == before + 1 + blocks
+    cpu = barabasi_albert(n, m, key.cpu(), chunk=chunk, device="cpu")
+    assert torch.equal(card.neighbors.cpu(), cpu.neighbors)
+    assert torch.equal(card.degrees.cpu(), cpu.degrees)
+
+
+@pytest.mark.parametrize("n,p", [(50, 0.1), (12, 0.99), (20000, 2e-4)])
+def test_erdos_renyi_on_card_equals_cpu(cuda_device, n, p):
+    card = erdos_renyi(n, p, prng.key(3, device=cuda_device))
+    cpu = erdos_renyi(n, p, prng.key(3, device="cpu"), device="cpu")
+    assert torch.equal(card.neighbors.cpu(), cpu.neighbors)
+    assert torch.equal(card.degrees.cpu(), cpu.degrees)
+
+
+def test_attach_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.attach.attach import attach_cuda
+
+    key = prng.key(0, device=cuda_device)
+    ends = torch.zeros(20, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="slots"):
+        attach_cuda(key, ends, first=3, count=4, fill=6, m=2)  # 22 > 20
+    with pytest.raises(TypeError):
+        attach_cuda(key, ends.long(), first=3, count=1, fill=6, m=2)
+    with pytest.raises(ValueError):
+        attach_cuda(key.cpu(), ends, first=3, count=1, fill=6, m=2)

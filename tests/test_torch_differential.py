@@ -2,8 +2,9 @@
 tests/test_engine_differential.py on the port's single-device engines.
 
 Voter, SIS, Axelrod and SIRS over ring, 2D lattice, Watts-Strogatz,
-Erdos-Renyi and Barabasi-Albert at n ~ 50 (the last two made by the
-reference's generators and carried across: the port has none), each
+Erdos-Renyi and Barabasi-Albert at n ~ 50 (the last two built by the
+port's own generators from the reference's keys, and held equal to the
+reference's graphs carried across), each
 through ``sequential``, ``wavefront``, ``wavefront_overlap`` and the four
 sharded engines at world size 1 (``sharded``, ``sharded_window_halo``,
 ``sharded_replicated``, ``sharded_overlap``) at W = 16, bit for bit
@@ -24,6 +25,7 @@ from repro import core as J  # noqa: E402
 from repro import mabs as JM  # noqa: E402
 from repro import topology as JT  # noqa: E402
 from repro_torch import mabs as PM  # noqa: E402
+from repro_torch import topology as PT  # noqa: E402
 from repro_torch.bridge import state_to_numpy, topology_from_numpy  # noqa: E402
 from repro_torch.engine import make_engine  # noqa: E402
 from repro_torch.utils import prng  # noqa: E402
@@ -41,10 +43,7 @@ def assert_states_equal(port_state, ref_state):
         np.testing.assert_array_equal(got, np.asarray(v), err_msg=k)
 
 
-@functools.lru_cache(maxsize=None)
-def _topology(name):
-    """The reference harness's five families at n ~ 50, made when a test
-    first asks (not at import: every worker imports every test file)."""
+def _reference_topology(name):
     k1, k2, k3, k4, k5 = jax.random.split(jax.random.key(11), 5)
     if name == "ring":
         return JT.ring(50, 4)
@@ -57,9 +56,30 @@ def _topology(name):
     return JT.barabasi_albert(50, 2, k5)
 
 
-def _harness_models(name, jt):
-    pt = topology_from_numpy(np.asarray(jt.neighbors),
-                             np.asarray(jt.degrees), CPU)
+@functools.lru_cache(maxsize=None)
+def _topology(name):
+    """The reference harness's five families at n ~ 50, as (reference,
+    port) graphs, made when a test first asks (not at import: every
+    worker imports every test file). Erdos-Renyi and Barabasi-Albert are
+    built by the port's generators from the same keys and must equal the
+    reference's graphs; the others are carried across."""
+    jt = _reference_topology(name)
+    carried = topology_from_numpy(np.asarray(jt.neighbors),
+                                  np.asarray(jt.degrees), CPU)
+    if name not in ("erdos_renyi", "barabasi_albert"):
+        return jt, carried
+    k1, k2, k3, k4, k5 = prng.split(prng.key(11, device=CPU), 5).unbind(0)
+    if name == "erdos_renyi":
+        pt = PT.connect_isolated(PT.erdos_renyi(50, 0.1, k3, device=CPU), k4)
+    else:
+        pt = PT.barabasi_albert(50, 2, k5, device=CPU)
+    assert torch.equal(pt.neighbors, carried.neighbors), name
+    assert torch.equal(pt.degrees, carried.degrees), name
+    return jt, pt
+
+
+def _harness_models(name, topologies):
+    jt, pt = topologies
     n = jt.n_nodes
     if name == "voter":
         return JM.VoterModel(jt), PM.VoterModel(pt)

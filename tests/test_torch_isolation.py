@@ -3,7 +3,8 @@
 An AST scan shows that nothing under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package; and with CUDA unavailable,
 every entry point called without ``device`` raises before doing any work
-instead of running on the CPU."""
+instead of running on the CPU. Every public name of the reference's core,
+topology and engine packages has a counterpart in the port."""
 import ast
 from pathlib import Path
 
@@ -45,9 +46,11 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"prng.py", "graph.py", "voter.py", "sis.py", "axelrod.py",
             "sir.py", "base.py", "chip_smoke.py", "bridge.py", "trace.py",
-            "profiler.py", "provenance.py", "stats.py", "timing.py"} <= names
+            "profiler.py", "provenance.py", "stats.py", "timing.py",
+            "chain.py", "workersim.py", "generators.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for kernel in ("conflict", "levels", "axelrod", "sir", "flash", "wkv6"):
+    for kernel in ("conflict", "levels", "axelrod", "sir", "flash", "wkv6",
+                   "attach"):
         for part in ("ops", "ref", kernel):
             assert f"src/repro_torch/kernels/{kernel}/{part}.py" in rel
     for module in ("models/api.py", "models/attention.py",
@@ -91,6 +94,8 @@ def cpu_model():
     lambda: PT.ring(16, 2),
     lambda: PT.lattice2d(4, 4),
     lambda: PT.watts_strogatz(16, 2, 0.1, prng.key(0, device="cpu")),
+    lambda: PT.erdos_renyi(16, 0.2, prng.key(0, device="cpu")),
+    lambda: PT.barabasi_albert(16, 2, prng.key(0, device="cpu")),
     lambda: PT.from_edges(4, [[0, 1], [1, 2]]),
     lambda: bridge.key_from_data(__import__("numpy").zeros(2, "uint32")),
     lambda: bridge.state_from_numpy({"x": __import__("numpy").zeros(3)}),
@@ -99,12 +104,26 @@ def cpu_model():
     lambda: PT.from_adjacency(torch.ones((3, 3), dtype=torch.bool)),
     lambda: AxelrodModel(AxelrodConfig(n_agents=8)),
     lambda: SIRModel(SIRConfig(n_agents=20, k=4, subset_size=5)),
-], ids=["key", "ring", "lattice2d", "watts_strogatz", "from_edges",
+], ids=["key", "ring", "lattice2d", "watts_strogatz", "erdos_renyi",
+        "barabasi_albert", "from_edges",
         "key_from_data", "state_from_numpy", "topology_from_numpy",
         "complete", "from_adjacency", "axelrod", "sirs"])
 def test_constructors_without_device_raise(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize("package", ["core", "topology", "engine"])
+def test_reference_public_names_have_counterparts(package):
+    """Every name in the reference's ``__all__`` resolves in the port's
+    package of the same name (and is listed in its ``__all__``)."""
+    import importlib
+
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    missing = [n for n in ref.__all__
+               if n not in port.__all__ or not hasattr(port, n)]
+    assert not missing, f"repro_torch.{package} lacks {missing}"
 
 
 def test_models_and_engines_without_device_raise(no_cuda, cpu_model):
