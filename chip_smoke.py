@@ -202,7 +202,34 @@ failure:
      once per iteration; the one-shot prefill at T = 2048 through
      "pallas" against "chunked" — last-token logits and layer 0's state
      within RWKV_PREFILL_TOL. Timed (bf16): as for smollm;
- 14. times each kernel at W = 4096 on real windows (CUDA events, median
+ 14. the training path (``train/``), after serving, through
+     ``attn_impl="chunked"`` (the reference trains through plain math;
+     neither hand-written LM kernel has a backward, and their launch
+     counters must stay 0): the refusal — ``"pallas"`` under grad raises
+     for flash and for wkv6 before launching either (reduced configs);
+     smollm-360m at full width and depth, one float32 step (TF32 off, B 2,
+     T 128, lr 1e-5 without warm-up) on the card and the same step on the
+     host's CPU from the same parameters — loss within TRAIN_LOSS_RTOL,
+     grad_norm within TRAIN_GNORM_RTOL, mu and nu per leaf within
+     TRAIN_MOMENT_TOL of the leaf's largest value, every parameter within
+     2·lr and at most TRAIN_FLIP_SHARE of them with updates more than
+     lr / 100 apart (Adam's first step moves each element by about lr
+     whatever its gradient, so the moments and that share carry the
+     parameters' check) — and the step at microbatches 2 against 1 on the
+     card (loss within 1e-5, the reference test's bound; mu and the
+     parameters as above); a NaN anywhere fails;
+     timed at bf16 (B 8, T 1024, remat): 3 warm-up and 10 timed steps,
+     tokens/s, ms per step, peak memory, host syncs inside ``step_fn``
+     over one step (sync debug mode; any fails), the device's idle share
+     over 3 profiled steps (kernels only), a finite loss at every step;
+     its state (bf16
+     params, float32 moments, 3.6 GB) saved under build/, restored into
+     another state with every leaf's bits equal, ``train_loop`` resumed
+     from it for 2 steps, the files deleted; rwkv6-3b checked the same
+     way at full width with 2 layers (the host CPU's memory and time) and
+     timed at full width and depth (B 4, T 512, 2 warm-up and 5 timed
+     steps, 1 profiled), its peak memory printed;
+ 15. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound, the levels kernel
      with its passes, and on random windows of density 0.3; the summary
      line holds SIS's conflict and levels times (the widest footprint of
@@ -255,7 +282,9 @@ compared in one call, each in its own process.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1447,6 +1476,18 @@ def rwkv_wave_profile(torch, waves: int = 10) -> dict:
                               for k, t in us.most_common(5)]}
 
 
+#: the text of the warning sync debug mode gives for each host sync (its
+#: one-time notice that the mode is a prototype also holds the word
+#: "synchronizing", and is not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def sync_warnings(caught) -> list[str]:
+    """The messages of the host-sync warnings among ``caught``."""
+    return [str(w.message) for w in caught
+            if SYNC_WARNING in str(w.message)]
+
+
 def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
     """Host syncs per window of one path over n_windows windows, as
     torch.cuda's sync debug mode reports them. The known one per window
@@ -1467,7 +1508,7 @@ def count_syncs(torch, models, engine, n_windows: int = 16) -> dict:
                            config=cfg, engine=engine)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        syncs = len(sync_warnings(caught))
         if syncs < n_windows:
             fail(f"{engine} {name}: sync debug mode saw {syncs} syncs in "
                  f"{n_windows} windows, fewer than the wave counts read")
@@ -3168,7 +3209,7 @@ def serving_timed(torch, arch=LM_ARCH, max_new=LM_MAX_NEW,
             first_iterations(PROFILE_START)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = len(sync_warnings(caught))
     row["host_syncs_per_iteration"] = syncs / PROFILE_START
     lap("syncs")
 
@@ -3289,6 +3330,401 @@ def drive_lm(torch) -> tuple[dict, dict]:
     serving_timed(torch, RWKV_ARCH, RWKV_MAX_NEW, "pallas")
     log(f"rwkv serving timed: {time.perf_counter() - t0:.1f} s")
     return launches, rwkv_launches
+
+
+# ------------------------------------------------------ the training phase
+#: the float32 checks: one step at B x T, peak lr with no warm-up. Adam's
+#: first step moves each element by about lr (m / sqrt(v) = sign(g)), so a
+#: gradient near zero whose sign the two sides round apart moves 2·lr
+#: apart, and a bound on the parameters alone passes any two updates: the
+#: moments and the share of elements whose updates differ carry the check
+TRAIN_CHECK_BATCH = (2, 128)
+TRAIN_CHECK_LR = 1e-5
+RWKV_CHECK_LAYERS = 2
+#: card against the host's CPU, float32, TF32 off: loss and grad_norm
+#: relative; mu and nu per leaf within TRAIN_MOMENT_TOL x the leaf's
+#: largest |value|; params within 2·lr, and at most TRAIN_FLIP_SHARE of
+#: the elements with updates more than lr / 100 apart
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_MOMENT_TOL = 1e-3
+TRAIN_FLIP_SHARE = 1e-3
+#: microbatches=2 against 1 on the card: the reference test's loss bound
+#: (tests/test_train_substrate.py); mu and the updates as above
+MICRO_LOSS_RTOL = 1e-5
+#: the timed runs (bf16 weights, remat on): B, T, warm-up, timed and
+#: profiled steps (rwkv6-3b's step is ~61k kernels, and the profiler's
+#: bookkeeping of three of them took most of a minute)
+TRAIN_TIMED = {LM_ARCH: (8, 1024, 3, 10, 3), RWKV_ARCH: (4, 512, 2, 5, 1)}
+TRAIN_SYNC_STEPS = 1
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def train_cfg(arch: str, dtype: str, **changes):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(param_dtype=dtype, attn_impl="chunked",
+                                    **changes)
+
+
+def train_batches(torch, vocab, b, t, n, device=None):
+    """n batches of the synthetic stream (seed SEED), on ``device``
+    (default: DEVICE)."""
+    from repro_torch.train.data import DataConfig, SyntheticLMStream
+    from repro_torch.train.loop import batch_to_device
+
+    stream = SyntheticLMStream(DataConfig(vocab=vocab, seq_len=t,
+                                          global_batch=b, seed=SEED))
+    return [batch_to_device(stream.batch_at(s), torch.device(device or DEVICE))
+            for s in range(n)]
+
+
+def lm_kernel_launches() -> dict:
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+
+    return {"flash_attention": flash_kernel.launches,
+            "wkv6": wkv6_kernel.launches}
+
+
+def zero_lm_kernel_launches() -> None:
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+
+    flash_kernel.launches = 0
+    wkv6_kernel.launches = 0
+
+
+def check_no_kernel(label: str) -> None:
+    """The training path runs no hand-written kernel (the reference's
+    trains through plain math; neither kernel has a backward)."""
+    launches = lm_kernel_launches()
+    if any(launches.values()):
+        fail(f"{label}: the training path launched {launches}")
+
+
+def train_refusal(torch) -> None:
+    """``attn_impl="pallas"`` under grad raises on the card for both
+    kernels, before launching either (reduced configs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+
+    for arch, kernel in ((LM_ARCH, "flash_attention"), (RWKV_ARCH, "wkv6")):
+        cfg = get_config(arch).reduced().replace(attn_impl="pallas")
+        model = build_model(cfg, DEVICE)
+        state = init_train_state(model, SEED, device=DEVICE)
+        batch = train_batches(torch, cfg.vocab, 2, 64, 1)[0]
+        zero_lm_kernel_launches()
+        try:
+            make_train_step(model, TrainHParams())(state, batch)
+        except RuntimeError as e:
+            if f"{kernel} has no backward" not in str(e):
+                raise
+            log(f"training refusal {arch}: {e}")
+        else:
+            fail(f"training {arch} through attn_impl='pallas' did not "
+                 f"raise")
+        check_no_kernel(f"training refusal {arch}")
+
+
+def train_checked(torch, arch, **changes) -> dict:
+    """One float32 step (TF32 off) of ``arch`` at full width on the card
+    and the same step on the host's CPU from the same parameters (drawn on
+    the CPU, carried to the card through the bridge), B x T =
+    TRAIN_CHECK_BATCH; then the step at microbatches=2 on the card against
+    the one at 1. ``changes`` cut the config (rwkv6-3b's depth: the host's
+    memory and time)."""
+    from repro_torch import bridge
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+
+    no_tf32(torch)
+    cfg = train_cfg(arch, "float32", **changes)
+    hp = dict(peak_lr=TRAIN_CHECK_LR, warmup_steps=0, total_steps=100)
+    b, t = TRAIN_CHECK_BATCH
+    t0 = time.perf_counter()
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(cfg, DEVICE)
+    cpu = init_train_state(cpu_model, SEED, device="cpu")
+    card = bridge.train_state_from_numpy(card_model,
+                                         bridge.train_state_to_numpy(cpu))
+    card_mb2 = copy.deepcopy(card)
+    before = {k: p.detach().clone() for k, p in cpu.params.named_parameters()}
+    setup_s = time.perf_counter() - t0
+
+    zero_lm_kernel_launches()
+    batch = train_batches(torch, cfg.vocab, b, t, 1)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, m_card = make_train_step(card_model, TrainHParams(**hp))(card,
+                                                                   batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_mb2, m_mb2 = make_train_step(card_model, TrainHParams(
+        **hp, microbatches=2))(card_mb2, batch)
+    check_no_kernel(f"training {arch} float32")
+    t0 = time.perf_counter()
+    cpu, m_cpu = make_train_step(cpu_model, TrainHParams(**hp))(
+        cpu, train_batches(torch, cfg.vocab, b, t, 1, device="cpu")[0])
+    cpu_s = time.perf_counter() - t0
+
+    def rel(a, c):
+        return abs(float(a) - float(c)) / max(abs(float(c)), 1e-30)
+
+    def worst(a, b):                     # a NaN stays a NaN
+        return math.nan if math.isnan(a) or math.isnan(b) else max(a, b)
+
+    def flipped(a, b):                   # updates more than lr / 100 apart
+        return int((~((a - b).abs() <= TRAIN_CHECK_LR / 100)).sum())
+
+    loss_err = rel(m_card["loss"], m_cpu["loss"])
+    gnorm_err = rel(m_card["grad_norm"], m_cpu["grad_norm"])
+    moment_err = 0.0                     # per leaf, over its largest |x|
+    update_err, flips, micro_flips, n_el = 0.0, 0, 0, 0
+    not_finite, micro_not_finite = 0, 0
+    micro_moment = 0.0
+    card_params = dict(card.params.named_parameters())
+    mb2_params = dict(card_mb2.params.named_parameters())
+    for name, p_cpu in cpu.params.named_parameters():
+        for part in ("mu", "nu"):
+            c = getattr(cpu.opt, part)[name]
+            scale = float(c.abs().max().clamp(min=1e-30))
+            moment_err = worst(moment_err, float(
+                (getattr(card.opt, part)[name].cpu() - c).abs().max())
+                / scale)
+            if part == "mu":
+                micro_moment = worst(micro_moment, float(
+                    (card_mb2.opt.mu[name] - card.opt.mu[name]).abs().max()
+                    .cpu()) / scale)
+        p_card = card_params[name].detach()
+        up_card = p_card.cpu() - before[name]
+        up_cpu = p_cpu.detach() - before[name]
+        update_err = worst(update_err,
+                           float((up_card - up_cpu).abs().max()))
+        flips += flipped(up_card, up_cpu)
+        micro_flips += flipped(mb2_params[name].detach(), p_card)
+        n_el += p_card.numel()
+        not_finite += int((~torch.isfinite(p_card)).sum())
+        micro_not_finite += int((~torch.isfinite(mb2_params[name])).sum())
+    row = {"arch": arch, "params": "float32", "layers": cfg.n_layers,
+           "batch": [b, t], "lr": TRAIN_CHECK_LR,
+           "loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
+           "grad_norm_card": float(m_card["grad_norm"]),
+           "grad_norm_cpu": float(m_cpu["grad_norm"]),
+           "loss_rel_err": loss_err, "grad_norm_rel_err": gnorm_err,
+           "moment_err_over_leaf_max": moment_err,
+           "params_max_abs_err": update_err,
+           "update_share_over_lr_100": flips / n_el,
+           "params_not_finite": not_finite,
+           "microbatch2_loss_rel_err": rel(m_mb2["loss"], m_card["loss"]),
+           "microbatch2_update_share_over_lr_100": micro_flips / n_el,
+           "microbatch2_params_not_finite": micro_not_finite,
+           "microbatch2_mu_err_over_leaf_max": micro_moment,
+           "card_step_s": card_s, "cpu_step_s": cpu_s, "setup_s": setup_s}
+    log(f"training checked {arch}: " + json.dumps(row))
+    if not (loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GNORM_RTOL
+            and moment_err <= TRAIN_MOMENT_TOL
+            and update_err <= 2 * TRAIN_CHECK_LR * (1 + 1e-3)
+            and flips / n_el <= TRAIN_FLIP_SHARE and not_finite == 0):
+        fail(f"training {arch}: the card's float32 step differs from the "
+             f"CPU's beyond the stated tolerances: {row}")
+    if not (row["microbatch2_loss_rel_err"] <= MICRO_LOSS_RTOL
+            and micro_moment <= TRAIN_MOMENT_TOL
+            and micro_flips / n_el <= TRAIN_FLIP_SHARE
+            and micro_not_finite == 0):
+        fail(f"training {arch}: microbatches=2 differs from 1: {row}")
+    del cpu, card, card_mb2, before
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_timed(torch, arch):
+    """bf16 weights, remat on, at full width and depth: tokens/s and ms
+    per step over the timed steps, peak device memory, host syncs inside
+    ``step_fn`` (sync debug mode; must be 0), the device's idle share
+    over the profiled steps (kernels only) against the timed steps' ms,
+    and a finite loss at every step. Returns (model, state, step_fn) for
+    the checkpoint round trip."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.utils.pytree import tree_bytes, tree_param_count
+
+    b, t, warmup, steps, profiled = TRAIN_TIMED[arch]
+    cfg = train_cfg(arch, "bfloat16")
+    model = build_model(cfg, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, SEED, device=DEVICE)
+    step_fn = make_train_step(model, TrainHParams(warmup_steps=2,
+                                                  total_steps=100))
+    n = warmup + steps + TRAIN_SYNC_STEPS + profiled
+    batches = iter(train_batches(torch, cfg.vocab, b, t, n))
+    losses = []
+
+    def run(k):
+        nonlocal state
+        for _ in range(k):
+            state, metrics = step_fn(state, next(batches))
+            losses.append(metrics["loss"])
+
+    zero_lm_kernel_launches()
+    t0 = time.perf_counter()
+    run(warmup)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(TRAIN_SYNC_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sync_warnings(caught)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(profiled)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    if not kernels:
+        fail(f"training {arch}: the profiler saw no device time")
+    us = Counter()
+    for e in kernels:
+        us[e.name] += e.device_time
+    busy_ms = sum(us.values()) / 1e3 / profiled
+    check_no_kernel(f"training {arch} bf16")
+    finite = bool(torch.isfinite(torch.stack(losses)).all())
+    ms = secs / steps * 1e3
+    row = {"arch": arch, "params": "bfloat16", "layers": cfg.n_layers,
+           "batch": [b, t], "remat": cfg.remat,
+           "n_params": tree_param_count(state.params),
+           "state_gb": tree_bytes(state) / 1e9,
+           "warmup_steps": warmup, "warmup_s": warmup_s,
+           "timed_steps": steps, "ms_per_step": ms,
+           "tokens_per_s": steps * b * t / secs,
+           "peak_memory_gb": peak / 1e9,
+           "host_syncs_in_step_fn": len(syncs),
+           "device_busy_ms_per_step": busy_ms,
+           "idle_share": 1.0 - busy_ms / ms,
+           "profiled_steps": profiled,
+           "kernels_per_step": len(kernels) / profiled,
+           "top_ms_per_step": [[k[:60], t / 1e3 / profiled]
+                               for k, t in us.most_common(8)],
+           "losses": [float(x) for x in losses]}
+    log(f"training timed {arch}: " + json.dumps(row))
+    if syncs:
+        fail(f"training {arch}: {len(syncs)} host syncs inside step_fn "
+             f"over {TRAIN_SYNC_STEPS} steps, e.g. {syncs[:3]}")
+    if not finite:
+        fail(f"training {arch}: a loss is not finite: {row['losses']}")
+    return model, state, step_fn
+
+
+def train_checkpoint(torch, model, state, step_fn) -> None:
+    """Save the timed state (bf16 params, float32 moments) under build/,
+    restore it into a fresh state and compare every leaf's bits, resume
+    ``train_loop`` from it at the right step, then delete the files."""
+    import shutil
+
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig, SyntheticLMStream
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import init_train_state
+    from repro_torch.utils.pytree import named_leaves
+
+    def bits(x):
+        return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+
+    b, t = TRAIN_TIMED[LM_ARCH][:2]
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(TRAIN_CKPT_DIR))
+        step = int(state.step)
+        t0 = time.perf_counter()
+        mgr.save(step, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size
+                     for f in TRAIN_CKPT_DIR.rglob("*") if f.is_file())
+        fresh = init_train_state(model, SEED + 1, device=DEVICE)
+        t0 = time.perf_counter()
+        restored, got = mgr.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = dict(named_leaves(state))
+        n_leaves = 0
+        for name, x in named_leaves(restored):
+            if (got != step or x.dtype != want[name].dtype
+                    or not torch.equal(bits(x), bits(want[name]))):
+                fail(f"checkpoint round trip: {name} differs (step {got})")
+            n_leaves += 1
+        del fresh, restored, want
+        resumed = init_train_state(model, SEED + 2, device=DEVICE)
+        stream = SyntheticLMStream(DataConfig(
+            vocab=model.cfg.vocab, seq_len=t, global_batch=b, seed=SEED))
+        t0 = time.perf_counter()
+        resumed, rep = train_loop(step_fn, resumed, stream, LoopConfig(
+            total_steps=step + 2, ckpt_every=10 ** 9,
+            ckpt_dir=str(TRAIN_CKPT_DIR)))
+        loop_s = time.perf_counter() - t0
+        if (rep.resumed_from != step or rep.steps_run != 2
+                or int(resumed.step) != step + 2
+                or not math.isfinite(rep.final_metrics["loss"])):
+            fail(f"resume: from {rep.resumed_from} ran {rep.steps_run} "
+                 f"steps to {int(resumed.step)} (saved at {step}), loss "
+                 f"{rep.final_metrics}")
+        log("training checkpoint " + LM_ARCH + ": " + json.dumps(
+            {"step": step, "leaves": n_leaves, "bytes": nbytes,
+             "save_s": save_s, "restore_s": restore_s,
+             "resumed_from": rep.resumed_from, "steps_run": rep.steps_run,
+             "loop_s": loop_s, "final_loss": rep.final_metrics["loss"]}))
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+
+def drive_training(torch) -> None:
+    """The training phase: the refusal, smollm-360m checked at float32,
+    timed at bf16 and its checkpoint round trip, then rwkv6-3b checked at
+    float32 (RWKV_CHECK_LAYERS layers) and timed at bf16."""
+    t0 = time.perf_counter()
+    train_refusal(torch)
+    train_checked(torch, LM_ARCH)
+    log(f"training checked {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model, state, step_fn = train_timed(torch, LM_ARCH)
+    train_checkpoint(torch, model, state, step_fn)
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    log(f"training timed {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_checked(torch, RWKV_ARCH, n_layers=RWKV_CHECK_LAYERS)
+    log(f"training checked {RWKV_ARCH}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_timed(torch, RWKV_ARCH)
+    torch.cuda.empty_cache()
+    log(f"training timed {RWKV_ARCH}: {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> None:
@@ -3420,6 +3856,10 @@ def main(argv=None) -> None:
     log(f"generators and DES: {time.perf_counter() - t0:.1f} s")
 
     lm_launches, rwkv_launches = drive_lm(torch)
+
+    t0 = time.perf_counter()
+    drive_training(torch)
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
 
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)

@@ -12,7 +12,9 @@ and without cross-window overlap), ``mabs`` (voter, SIS, Axelrod, SIRS),
 dense family: ``configs`` (the architecture configs), ``models``
 (layers, attention with the ring KV cache, the decoder stack, ``Model``),
 ``serving`` (the protocol-scheduled ``ServingEngine``) and
-``launch/serve.py``.
+``launch/serve.py``; and their training path: ``train`` (AdamW, LR
+schedules, the train step, the synthetic data stream, checkpoints in the
+reference's layout, the resuming loop) and ``launch/train.py``.
 
 The port imports torch and numpy, never JAX and nothing of ``repro``.
 Entry points run on the card unless a caller names another device.

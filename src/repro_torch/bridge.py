@@ -22,6 +22,18 @@ here. Every function places its result on ``device`` (default: the card).
                        of RWKV states ``tm.last``, ``tm.s``, ``cm.last``;
                        and ``pos``) -> the port's (and back with
                        ``lm_states_to_numpy``)
+  lm_params_to_numpy   the port's ``LMParams`` — or a dict of gradients
+                       keyed by the parameters' names — -> the reference's
+                       parameter pytree, segment leaves stacked
+  train_state_from_numpy the reference's ``TrainState`` (params, AdamW
+                       ``mu``/``nu``/``count``, ``step``; NamedTuples or
+                       dicts of numpy leaves) -> the port's, on the
+                       model's device, parameters requiring grad (and back
+                       with ``train_state_to_numpy``, as nested dicts)
+
+Going to numpy, bfloat16 leaves come out as float32 (exact; numpy has no
+bfloat16 without ml_dtypes). Checkpoints keep bf16 bits
+(``train/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 
 from repro_torch.topology import Topology
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import load_leaves, stack_leaves
 
 
 def topology_from_numpy(neighbors, degrees, device=None) -> Topology:
@@ -85,8 +98,12 @@ def _tensor(x, dev) -> torch.Tensor:
 
 
 def _flat(tree, prefix: str = ""):
-    """(dotted path, leaf) pairs of a nested dict/list pytree."""
-    if isinstance(tree, dict):
+    """(dotted path, leaf) pairs of a nested dict/list/NamedTuple
+    pytree."""
+    if hasattr(tree, "_fields"):                    # a NamedTuple
+        for k in tree._fields:
+            yield from _flat(getattr(tree, k), f"{prefix}{k}.")
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flat(v, f"{prefix}{k}.")
     elif isinstance(tree, (list, tuple)):
@@ -96,38 +113,85 @@ def _flat(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+def _load(target, tree) -> None:
+    """Copy a reference pytree (numpy leaves) into the port tree
+    ``target`` leaf by leaf, through the reference's paths
+    (``utils/pytree.load_leaves``): a stacked ``[L, ...]`` segment leaf
+    fills the segment's layers in order. Every leaf must be matched by
+    exactly one of the same shape and dtype."""
+    flat = {path.replace(".", "/"): x for path, x in _flat(tree)}
+    load_leaves(target, flat, lambda path: _tensor(flat[path], "cpu"))
+
+
 def lm_params_from_numpy(model, tree: dict):
     """The reference's parameter pytree (numpy leaves) as the port's
     ``LMParams`` on the model's device. Segment leaves are stacked
     ``[L, ...]`` in the reference and one module per layer here
     (``segments.<i>.<layer>.<path>``). Every parameter must be matched
     by exactly one leaf of the same shape."""
-    leaves = {}
-    for path, x in _flat(tree):
-        parts = path.split(".")
-        if parts[0] == "segments":
-            x = np.asarray(x)
-            for layer in range(x.shape[0]):
-                name = ".".join(parts[:2] + [str(layer)] + parts[2:])
-                leaves[name] = x[layer]
-        else:
-            leaves[path] = x
     params = model.empty_params()
-    names = dict(params.named_parameters())
-    if set(names) != set(leaves):
-        raise ValueError(
-            f"parameter trees differ: only in the port "
-            f"{sorted(set(names) - set(leaves))[:5]}, only in the "
-            f"reference {sorted(set(leaves) - set(names))[:5]}")
-    with torch.no_grad():
-        for name, p in names.items():
-            x = _tensor(leaves[name], p.device)
-            if x.shape != p.shape or x.dtype != p.dtype:
-                raise ValueError(f"{name}: reference {x.dtype} "
-                                 f"{tuple(x.shape)}, port {p.dtype} "
-                                 f"{tuple(p.shape)}")
-            p.copy_(x)
+    _load(params, tree)
     return params
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy; float leaves as float32."""
+    t = t.detach().float() if t.is_floating_point() else t.detach()
+    return np.array(t.cpu().numpy())
+
+
+def _nest(flat: dict) -> dict:
+    """``/``-joined paths -> nested dicts; a dict whose keys are all
+    indices (``segments``) becomes a list."""
+    root: dict = {}
+    for path, x in flat.items():
+        *parents, last = path.split("/")
+        node = root
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = x
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def _to_reference(tree) -> dict:
+    return _nest(stack_leaves(tree, _numpy))
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The reference's parameter pytree (nested dicts and the
+    ``segments`` list, numpy leaves, segment leaves stacked ``[L, ...]``)
+    of the port's ``LMParams``, or of a dict of tensors keyed by the
+    parameters' names (gradients, an AdamW moment)."""
+    return _to_reference(params)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The reference's ``TrainState`` layout as nested dicts: ``params``,
+    ``opt`` (``mu``, ``nu``, ``count``) and ``step``, numpy leaves."""
+    return _to_reference(state)
+
+
+def train_state_from_numpy(model, tree):
+    """The reference's ``TrainState`` (NamedTuples or dicts: ``params``,
+    ``opt`` with ``mu``, ``nu``, ``count``, and ``step``; numpy leaves)
+    as the port's, on the model's device; the parameters require grad."""
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.step import TrainState
+
+    params = model.empty_params()
+    state = TrainState(params, adamw_init(params),
+                       torch.zeros((), dtype=torch.int32, device=model.device))
+    _load(state, tree)
+    params.requires_grad_(True)
+    return state
 
 
 _KV = ("k", "v", "length", "kpos")
@@ -168,15 +232,11 @@ def lm_states_to_numpy(states: dict) -> dict:
     "cm": {"last"}}`` (float leaves as float32) and ``pos``."""
     from repro_torch.models.attention import KVCache, map_state
 
-    def arr(t):  # a copy: the port updates its states in place
-        t = t.detach().float() if t.is_floating_point() else t.detach()
-        return np.array(t.cpu().numpy())
-
-    def leaf(x):
+    def leaf(x):  # copies: the port updates its states in place
         if isinstance(x, KVCache):
-            return {n: arr(getattr(x, n)) for n in _KV}
-        return arr(x)
+            return {n: _numpy(getattr(x, n)) for n in _KV}
+        return _numpy(x)
 
     return {"segs": map_state(leaf, list(states["segs"]),
                               is_leaf=lambda x: isinstance(x, KVCache)),
-            "pos": arr(states["pos"])}
+            "pos": _numpy(states["pos"])}

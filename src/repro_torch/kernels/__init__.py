@@ -9,7 +9,9 @@ Each subpackage keeps the reference's three files:
 
 Dispatch policy (``use_kernel``): a CUDA tensor launches the kernel, a CPU
 tensor takes the plain version. There is no other path: a kernel that
-fails to build or launch raises, it never falls back.
+fails to build or launch raises, it never falls back. No kernel has a
+backward: flash and wkv6, called with grad enabled on an input that
+requires grad, raise on either device (``refuse_grad``).
 
 Kernels:
   conflict — W×W prefix-conflict matrix over task id footprints (the
@@ -41,6 +43,19 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a backward of kernel ``name``: grad
+    mode on and any input requiring grad. The reference's Pallas kernels
+    have no backward either (``jax.grad`` through them fails), so neither
+    has the port's, and no call falls back to the plain version: training
+    runs the plain math through ``attn_impl="chunked"`` or ``"ref"``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the reference's Pallas "
+            f"kernel); train with attn_impl='chunked' or 'ref'")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -2,13 +2,15 @@
 
 A CUDA tensor launches the hand-written kernel (flash.py, the port of
 ``repro/kernels/flash/ops.py::flash_attention``); a CPU tensor takes the
-plain version (ref.py). There is no other path.
+plain version (ref.py). There is no other path. Neither has a backward:
+with grad enabled and an input that requires grad, the call raises on
+either device (``kernels.refuse_grad``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import refuse_grad, use_kernel
 from repro_torch.kernels.flash.flash import flash_attention_cuda
 from repro_torch.kernels.flash.ref import attention_ref
 
@@ -21,6 +23,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sliding ``window`` w: query t attends keys (t-w, t]; requires causal.
     Ends are aligned when S > T (chunked prefill semantics).
     """
+    refuse_grad("flash_attention", q, k, v)
     b, h, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if scale is None:

@@ -2,13 +2,15 @@
 
 A CUDA tensor launches the hand-written kernel (wkv6.py, the port of
 ``repro/kernels/wkv6/ops.py::wkv6``); a CPU tensor takes the plain
-version (ref.py). There is no other path.
+version (ref.py). There is no other path. Neither has a backward: with
+grad enabled and an input that requires grad, the call raises on either
+device (``kernels.refuse_grad``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import refuse_grad, use_kernel
 from repro_torch.kernels.wkv6.ref import (
     check_commit,
     wkv6_decode_step,
@@ -35,6 +37,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     s_out when one is given. Any T >= 1 (the reference's kernel wrapper
     needs a multiple of 32). One kernel launch on CUDA tensors.
     """
+    refuse_grad("wkv6", r, k, v, w, u, s0)
     if not use_kernel(r):
         return wkv6_ref(r, k, v, w, u, s0=s0, s_out=s_out, commit=commit)
     check_commit(s_out, commit)

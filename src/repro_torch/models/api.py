@@ -5,7 +5,10 @@ ssm family (RWKV6). As in the reference the methods take the parameters
 and the streaming states as arguments (``params`` is the ``LMParams``
 module tree that ``init`` returns); unlike it, ``prefill`` and
 ``decode_step`` update the states' tensors **in place** and return the
-same dict. The serving path runs under ``torch.inference_mode``.
+same dict. The serving path (``init_states``, ``prefill``,
+``decode_step``) runs under ``torch.inference_mode``; the training path
+(``apply_train``, ``loss``) runs under whatever grad mode the caller
+set, so ``torch.autograd.grad`` reaches the parameters through it.
 
 ``Model(cfg, device)`` places everything it makes on ``device``; with
 ``device=None`` that is the card, and without one it raises (the port's
@@ -68,9 +71,10 @@ class Model:
                 "(ROADMAP.md, queue 1, item 13)")
         return embed(params.embed, batch["tokens"]), 0
 
-    @torch.inference_mode()
     def apply_train(self, params: LMParams, batch):
-        """Training-mode forward (no cache): (logits [B, T, V], aux)."""
+        """Training-mode forward (no cache): (logits [B, T, V], aux).
+        Differentiable: with grad enabled each layer runs under
+        ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
         cfg = self.cfg
         x, n_prefix = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -80,7 +84,9 @@ class Model:
         return logits_head(params, hidden, cfg), aux
 
     def loss(self, params: LMParams, batch):
-        """Mean cross-entropy, forward only (no backward kernel yet)."""
+        """(mean cross-entropy, metrics ``{"ce"}``). The dense and
+        RWKV6 families have no auxiliary loss (the reference adds one only
+        for MoE)."""
         logits, _ = self.apply_train(params, batch)
         ce = cross_entropy(logits, batch["labels"])
         return ce, {"ce": ce}

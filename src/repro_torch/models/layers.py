@@ -9,8 +9,10 @@ way the reference's take dicts. ``Dense`` keeps its weight as
 ``[d_in, d_out]`` and computes ``x @ w``, as the reference does, so the
 bridge copies weights across without transposes.
 
-Parameters are created with ``requires_grad=False``: the port serves and
-evaluates; training with a backward pass is later work.
+Parameters are created with ``requires_grad=False``, so serving and
+evaluation build no autograd graph; the training path
+(``train/step.py::init_train_state``) turns gradients on for its own
+parameters.
 """
 from __future__ import annotations
 

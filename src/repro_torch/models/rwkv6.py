@@ -17,6 +17,10 @@ The WKV recurrence runs through one of (``impl``, the config's
               is the reference's; unlike the reference, whose model never
               reaches its TPU kernel (it starts from a zero state), the
               port runs it on every time-mix, with the carried state.
+              The kernel has no backward, so training through "pallas"
+              raises (``kernels.refuse_grad``) where the reference's
+              model trains through the chunked math: train with
+              "chunked" or "ref".
 
 State (``{"last": [B, 1, D], "s": [B, H, D, D] f32}`` for the time-mix,
 ``{"last"}`` for the channel-mix) is O(H·D²) per layer. Unlike the

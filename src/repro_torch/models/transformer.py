@@ -26,6 +26,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention,
@@ -185,12 +186,20 @@ _ZERO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0,
 def run_segment(seg: Segment, layers, x, cfg, *, positions, state=None,
                 mode="train", commit=None):
     """Apply a homogeneous segment layer by layer; ``state`` (the stacked
-    segment state, or None) is updated in place."""
+    segment state, or None) is updated in place.
+
+    Training with grad enabled and ``cfg.remat`` (the reference's
+    ``jax.checkpoint`` around each layer) keeps only each layer's input
+    for the backward pass and recomputes the rest of the layer there."""
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, lp in enumerate(layers):
-        x = apply_layer(seg.kind, lp, x, cfg, positions=positions,
-                        is_global=seg.is_global,
-                        state=_layer_state(state, i), mode=mode,
-                        commit=commit)
+        kw = dict(positions=positions, is_global=seg.is_global,
+                  state=_layer_state(state, i), mode=mode, commit=commit)
+        if remat:
+            x = checkpoint(apply_layer, seg.kind, lp, x, cfg, **kw,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = apply_layer(seg.kind, lp, x, cfg, **kw)
     return x
 
 

@@ -1,8 +1,10 @@
 """The port on the card: the hand-written kernels against their plain
 PyTorch versions, bit for bit (the attachment kernel also through
 ``barabasi_albert`` against the CPU build), small wavefront and
-wavefront_overlap runs through them against the port's oracle and its CPU run, and a traced
-run against the untraced one. Every test is marked ``cuda``
+wavefront_overlap runs through them against the port's oracle and its CPU run, a traced
+run against the untraced one, and reduced train steps against the same
+steps on the CPU, without a host sync, and the refusal to train through
+the kernels (which have no backward). Every test is marked ``cuda``
 and skips without a card. The file imports no JAX, so it runs on a GPU
 machine that has only PyTorch (``--noconftest``: tests/conftest.py
 imports JAX):
@@ -916,3 +918,153 @@ def test_attach_kernel_refuses_what_it_does_not_take(cuda_device):
         attach_cuda(key, ends.long(), first=3, count=1, fill=6, m=2)
     with pytest.raises(ValueError):
         attach_cuda(key.cpu(), ends, first=3, count=1, fill=6, m=2)
+
+
+# -------------------------------------------------------------- training
+TRAIN_ARCHS = ["smollm-360m", "rwkv6-3b"]
+TRAIN_HP = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+#: as tests/test_torch_train.py: params at 2 % of the peak lr (Adam's
+#: normalized step carries a tiny gradient's relative rounding into the
+#: parameter at the scale of lr), the rest within float32 rounding
+TRAIN_TOL = dict(rtol=1e-5, atol=1e-6)
+TRAIN_PARAMS_TOL = dict(rtol=1e-5, atol=2e-5)
+
+
+def _train_batches(vocab, device, n=3):
+    from repro_torch.train.data import DataConfig, SyntheticLMStream
+    from repro_torch.train.loop import batch_to_device
+
+    stream = SyntheticLMStream(DataConfig(vocab=vocab, seq_len=32,
+                                          global_batch=4))
+    return [batch_to_device(stream.batch_at(s), torch.device(device))
+            for s in range(n)]
+
+
+def _kernel_launches():
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
+
+    return flash_kernel.launches, wkv6_kernel.launches
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+@pytest.mark.parametrize("impl", ["ref", "chunked"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_steps_on_card_equal_cpu(cuda_device, no_tf32, arch, impl,
+                                       n_micro):
+    """Reduced config, float32: three train steps on the card equal the
+    same steps on the CPU from the same parameters (drawn on the CPU), and
+    launch no hand-written kernel (the training path has none)."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_config(arch).reduced().replace(attn_impl=impl)
+    hp = TrainHParams(**TRAIN_HP, microbatches=n_micro)
+    cpu_model = build_model(cfg, "cpu")
+    cpu = init_train_state(cpu_model, 0, device="cpu")
+    card_model = build_model(cfg, cuda_device)
+    card = bridge.train_state_from_numpy(card_model,
+                                         bridge.train_state_to_numpy(cpu))
+    before = _kernel_launches()
+    runs = {}
+    for name, model, state in (("card", card_model, card),
+                               ("cpu", cpu_model, cpu)):
+        step_fn = make_train_step(model, hp)
+        runs[name] = []
+        for batch in _train_batches(cfg.vocab, model.device):
+            state, metrics = step_fn(state, batch)
+            runs[name].append((bridge.train_state_to_numpy(state),
+                               {k: float(v) for k, v in metrics.items()}))
+    assert _kernel_launches() == before
+    for (got, got_m), (want, want_m) in zip(runs["card"], runs["cpu"]):
+        assert got_m == pytest.approx(want_m, rel=1e-5, abs=1e-6)
+        assert int(got["step"]) == int(want["step"])
+        assert int(got["opt"]["count"]) == int(want["opt"]["count"])
+        for part, tol in (("params", TRAIN_PARAMS_TOL),
+                          ("mu", TRAIN_TOL), ("nu", TRAIN_TOL)):
+            a = got[part] if part == "params" else got["opt"][part]
+            b = want[part] if part == "params" else want["opt"][part]
+            for (pa, xa), (pb, xb) in zip(_walk(a), _walk(b)):
+                assert pa == pb
+                np.testing.assert_allclose(xa, xb, err_msg=f"{part} {pa}",
+                                           **tol)
+
+
+def _walk(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_makes_no_host_sync(cuda_device, arch, n_micro):
+    """After a first step, a train step (bf16 weights, remat on) runs
+    under ``set_sync_debug_mode("error")``: no host sync."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_config(arch).reduced().replace(attn_impl="chunked",
+                                             param_dtype="bfloat16")
+    model = build_model(cfg, cuda_device)
+    state = init_train_state(model, 0, device=cuda_device)
+    step_fn = make_train_step(model, TrainHParams(**TRAIN_HP,
+                                                  microbatches=n_micro))
+    batches = _train_batches(cfg.vocab, cuda_device)
+    state, _ = step_fn(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in batches[1:]:
+            state, metrics = step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]).item()
+    assert int(state.step) == 3
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_pallas_training_raises_on_card(cuda_device, arch):
+    """Training through the kernels raises before launching one; without
+    grad the same model runs them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_config(arch).reduced().replace(attn_impl="pallas")
+    model = build_model(cfg, cuda_device)
+    state = init_train_state(model, 0, device=cuda_device)
+    batch = _train_batches(cfg.vocab, cuda_device, n=1)[0]
+    before = _kernel_launches()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        make_train_step(model, TrainHParams(**TRAIN_HP))(state, batch)
+    assert _kernel_launches() == before
+    with torch.no_grad():
+        loss, _ = model.loss(state.params, batch)
+    assert torch.isfinite(loss).item()
+    after = _kernel_launches()
+    grew = [a - b for a, b in zip(after, before)]
+    assert grew == ([cfg.n_layers, 0] if arch == "smollm-360m"
+                    else [0, cfg.n_layers])

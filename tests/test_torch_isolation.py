@@ -4,7 +4,7 @@ An AST scan shows that nothing under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package; and with CUDA unavailable,
 every entry point called without ``device`` raises before doing any work
 instead of running on the CPU. Every public name of the reference's core,
-topology and engine packages has a counterpart in the port."""
+topology, engine and train packages has a counterpart in the port."""
 import ast
 from pathlib import Path
 
@@ -57,7 +57,11 @@ def test_port_files_found():
                    "models/transformer.py", "models/layers.py",
                    "models/rwkv6.py",
                    "serving/engine.py", "configs/base.py",
-                   "configs/registry.py", "launch/serve.py"):
+                   "configs/registry.py", "launch/serve.py",
+                   "train/__init__.py", "train/optim.py",
+                   "train/schedule.py", "train/step.py", "train/data.py",
+                   "train/checkpoint.py", "train/loop.py",
+                   "launch/train.py", "utils/pytree.py"):
         assert f"src/repro_torch/{module}" in rel
 
 
@@ -113,7 +117,8 @@ def test_constructors_without_device_raise(no_cuda, call):
         call()
 
 
-@pytest.mark.parametrize("package", ["core", "topology", "engine"])
+@pytest.mark.parametrize("package", ["core", "topology", "engine",
+                                     "train"])
 def test_reference_public_names_have_counterparts(package):
     """Every name in the reference's ``__all__`` resolves in the port's
     package of the same name (and is listed in its ``__all__``)."""
@@ -201,3 +206,21 @@ def test_lm_entry_points_without_device_raise(no_cuda):
         ServingEngine(model, params, n_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "smollm-360m", "--reduced"])
+
+
+def test_train_entry_points_without_device_raise(no_cuda, tmp_path):
+    """The training path's entry points, called without a device, raise
+    before placing anything: the train state and the train launcher (which
+    writes no checkpoint)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state
+
+    model = build_model(get_config("smollm-360m").reduced(), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(model, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "smollm-360m", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
