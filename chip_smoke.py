@@ -45,7 +45,10 @@ failure:
      and bfloat16 at the reference's five sweep shapes, smollm-360m's
      prefill (H 15, Hkv 5, D 64, T = S = 2048), danube's (H 32, Hkv 8,
      D 120, T = S = 8192, window 4096), deepseek's (H = Hkv = 32, D 128),
-     an odd T, S > T with and without a window, and a decode shape,
+     an odd T, S > T with and without a window, a decode shape,
+     hymba-1.5b's window-1024 and global layers (H 25, Hkv 5, D 64,
+     T = S = 128 + 2048) and seamless-m4t's cross-attention (H = Hkv =
+     16, no mask, T in {1, 64, 600} against S = 512: T > S included),
      each on inputs of std 0.3 (a flat softmax) and of std 1 (a peaked
      one) — float32 within atol 2e-5 / rtol 1e-4 (atol 1e-4 from
      S = 2048 on), bfloat16 within atol 2e-3 / rtol 1e-2, the max error
@@ -171,13 +174,14 @@ failure:
      built on the card) and of SIRS (n = 10^6 ring, k = 14, s = 50),
      2,000 tasks at n_workers 1 and 4: each ``DESResult`` equal, field
      for field, to the one of the same model built on the CPU;
- 13. the LM serving path at smollm-360m's full width (32 layers,
-     d_model 960, vocab 49152), random weights from the seed: 16 requests
+ 13. the LM serving path at smollm-360m's full width (d_model 960,
+     vocab 49152; its 32 layers cut to 16, the cut order's third step),
+     random weights from the seed: 16 requests
      with prompt lengths 64-1536 drawn from the seed, 64 new tokens each,
      8 slots, max_len 2048, prefill chunks of 128. Checked (float32
      weights, TF32 off): the ``ServingEngine``'s tokens must equal
      per-request sequential decoding whose one-shot prefill runs through
-     the flash kernel (``attn_impl="pallas"``, 32 launches a request),
+     the flash kernel (``attn_impl="pallas"``, 16 launches a request),
      under one tie rule — a token that differs at a top-two margin above
      1e-4 fails, at or below it the request is a float32 tie and its
      remaining tokens are not compared, more than one tie fails; the
@@ -193,15 +197,18 @@ failure:
      at T = 2048 with "pallas" and with "chunked".
      Then the RWKV6 serving path at rwkv6-3b's full width and depth (32
      layers, d_model 2560, 40 WKV heads of 64, d_ff 8960, vocab 65536),
-     the same requests with 32 new tokens each, every time-mix through
+     the same requests with 16 new tokens each (the cut order's second
+     step; 32 before), every
+     time-mix through
      the wkv6 kernel (``attn_impl="pallas"``). Checked (float32, TF32
      off): the engine's tokens against sequential decoding under the tie
      rule; the wkv6 counter set to 0 just before each run and read just
      after, exactly 32 x (prefill chunks + decode waves) over the
-     engine's run and 32 x 16 x 32 over the sequential decoding; levels
+     engine's run and 32 x 16 x 16 over the sequential decoding; levels
      once per iteration; the one-shot prefill at T = 2048 through
      "pallas" against "chunked" — last-token logits and layer 0's state
-     within RWKV_PREFILL_TOL. Timed (bf16): as for smollm;
+     within RWKV_PREFILL_TOL. Timed (bf16): as for smollm, the idle share
+     over iterations 30-39 (the run has 49);
  14. the training path (``train/``), after serving, through
      ``attn_impl="chunked"`` (the reference trains through plain math;
      neither hand-written LM kernel has a backward, and their launch
@@ -229,7 +236,31 @@ failure:
      way at full width with 2 layers (the host CPU's memory and time) and
      timed at full width and depth (B 4, T 512, 2 warm-up and 5 timed
      steps, 1 profiled), its peak memory printed;
- 15. times each kernel at W = 4096 on real windows (CUDA events, median
+ 15. the families phase: hymba-1.5b at full width and depth (32
+     layers, d_model 1600, 25 heads over 5, window 1024, global layers
+     0/16/31, 128 meta tokens, SSM 25 x 64 with state 16, vocab 32001),
+     the serving cell's 16 requests with 16 new tokens. Checked (float32,
+     TF32 off; the first 8 requests, 4 past the window): the engine's
+     tokens against sequential decoding whose
+     one-shot prefill runs through flash (32 launches a request), under
+     the tie rule, levels once per iteration; apply_train's logits on the
+     card (flash) against the host CPU's within HYMBA_CPU_TOL, which must
+     reject the SSM branch without ``d_skip``. Timed (bf16): tokens/s,
+     iterations, idle share over iterations 30-39, kernels per iteration,
+     one-shot prefill ms at 128 + 2048 tokens through flash and chunked.
+     Then qwen3-moe-235b-a22b (d 4096, 64/4 heads of 128, 128 experts
+     top-8, vocab 151936; 6 of 94 layers at float32, 13 at bf16),
+     seamless-m4t-medium (12 + 12 layers, d 1024, vocab 256206) and
+     internvl2-76b (d 8192, 64/8 heads of 128, vocab 128256; 18 of 80
+     layers at float32, 38 at bf16) at full width, through "pallas":
+     float32 (MoE at dropless capacity 8.0) — a prefill of T - 1 tokens
+     and one decode step against the teacher-forced logits within
+     FAMILY_TOL, which must reject a decode at the wrong position (and
+     MoE routed top-7, the VLM's prefill without its patches), flash
+     once per attention layer and forward; bf16 — one-shot prefill ms
+     (B 8, T 512, patches or source frames as ``input_specs`` lays
+     them out), ms per decode step over 8, MoE's overflow fraction;
+ 16. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound, the levels kernel
      with its passes, and on random windows of density 0.3; the summary
      line holds SIS's conflict and levels times (the widest footprint of
@@ -2523,11 +2554,24 @@ FLASH_CASES = (
     ("S > T", 1, 15, 5, 333, 2048, 64, True, None),
     ("S > T window", 1, 32, 8, 77, 5000, 120, True, 4096),
     ("decode", 8, 15, 5, 1, 1600, 64, True, None),
+    # hymba-1.5b's one-shot prefill: 128 meta tokens + 2,048, 25 heads
+    # over 5, its window-1024 and global layers
+    ("hymba local", 1, 25, 5, 2176, 2176, 64, True, 1024),
+    ("hymba global", 1, 25, 5, 2176, 2176, 64, True, None),
+    # seamless-m4t's cross-attention (no mask, 16 heads): T below, and
+    # above, S = 512 source frames (T > S without a mask)
+    ("cross T=1", 1, 16, 16, 1, 512, 64, False, None),
+    ("cross T=64", 1, 16, 16, 64, 512, 64, False, None),
+    ("cross T=600", 1, 16, 16, 600, 512, 64, False, None),
 )
 #: std of the parity inputs: 0.3 (scores of std ~0.1, a flat softmax, as
 #: the reference's sweep) and 1 (scores of std ~1, a peaked one)
 FLASH_SCALES = (0.3, 1.0)
 LM_ARCH = "smollm-360m"
+#: the serving phase's depth: smollm-360m's 32 layers cut to 16 (the
+#: cut order's third step, to keep the script within 900 s); its width,
+#: and the training phase's depth, stay full
+LM_SERVING_LAYERS = {LM_ARCH: 16}
 LM_REQUESTS = 16
 LM_PROMPT_LENS = (64, 1536)      # inclusive range of the prompt lengths
 LM_MAX_NEW = 64
@@ -2544,9 +2588,13 @@ WARMUP_ITERATIONS = 20
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_TENSOR_OPS_PER_S = 989e12
 
-# the RWKV6 serving phase: the same requests, slots, max_len and chunks
+# the RWKV6 serving phase: the same requests, slots, max_len and chunks,
+# 16 new tokens (the cut order's second step; 32 before)
 RWKV_ARCH = "rwkv6-3b"
-RWKV_MAX_NEW = 32
+RWKV_MAX_NEW = 16
+#: the 16-token runs have 49 iterations: their profiled sample is
+#: iterations [SHORT_PROFILE_START, SHORT_PROFILE_START + 10)
+SHORT_PROFILE_START = 30
 #: wkv6 parity cases: (name, B, H, T, D)
 WKV6_CASES = (
     ("sweep 1", 1, 2, 128, 64),
@@ -2859,6 +2907,8 @@ def lm_model(torch, dtype: str, attn_impl: str = "chunked",
     from repro_torch.models import build_model
 
     cfg = get_config(arch).replace(param_dtype=dtype, attn_impl=attn_impl)
+    if arch in LM_SERVING_LAYERS:
+        cfg = cfg.replace(n_layers=LM_SERVING_LAYERS[arch])
     return build_model(cfg, DEVICE)
 
 
@@ -2908,7 +2958,7 @@ def check_tokens(label, eng, seq, max_new) -> list:
     below it the request is a float32 tie and its remaining tokens are
     not compared; more than one tie fails. Returns the tied requests."""
     by_rid = {r.rid: r for r in eng.finished}
-    if sorted(by_rid) != list(range(LM_REQUESTS)):
+    if sorted(by_rid) != list(range(len(seq))):
         fail(f"{label}: finished {sorted(by_rid)}")
     ties = []
     for rid, (toks, margins) in enumerate(seq):
@@ -2933,9 +2983,10 @@ def check_tokens(label, eng, seq, max_new) -> list:
 
 
 def serving_checked(torch):
-    """smollm-360m at full width, float32 weights, TF32 off: the engine's
-    tokens against per-request sequential decoding whose one-shot
-    prefill runs through the flash kernel, under one tie rule; levels
+    """smollm-360m at full width (the depth cut to LM_SERVING_LAYERS),
+    float32 weights, TF32 off: the engine's tokens against per-request
+    sequential decoding whose one-shot prefill runs through the flash
+    kernel, under one tie rule; levels
     launches counted over the engine's run, flash launches over the
     sequential decoding; then the one-shot prefill with "pallas" against
     "ref". Returns the launches."""
@@ -3086,16 +3137,22 @@ def rwkv_serving_checked(torch):
 
 
 def serving_timed(torch, arch=LM_ARCH, max_new=LM_MAX_NEW,
-                  engine_impl="chunked"):
+                  engine_impl="chunked", profile_start=PROFILE_START,
+                  fenced_and_syncs=True, warmup=WARMUP_ITERATIONS):
     """bf16 weights, the same requests: tokens/s, iterations and mean
     wave; fenced ms per decode wave and per prefill chunk; the device's
-    idle share over a sample of PROFILE_ITERATIONS iterations; host syncs
-    per iteration; one-shot prefill ms at T = 2048 ("pallas" and
-    "chunked"). The engine's model runs through ``engine_impl``."""
+    idle share over a sample of PROFILE_ITERATIONS iterations from
+    ``profile_start``; host syncs per iteration; one-shot prefill ms at
+    T = 2048 ("pallas" and "chunked"; the meta tokens in front where the
+    model has them). The engine's model runs through ``engine_impl``.
+    ``fenced_and_syncs=False`` skips the fenced run and the sync count,
+    and ``warmup`` sets the warm-up's iterations (the families phase's
+    budget). Returns the row."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.levels import levels as levels_kernel
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.utils.timing import median_time
 
@@ -3117,8 +3174,8 @@ def serving_timed(torch, arch=LM_ARCH, max_new=LM_MAX_NEW,
         return e
 
     def mark(eng, t0):
-        if eng.iterations in (PROFILE_START,
-                              PROFILE_START + PROFILE_ITERATIONS):
+        if eng.iterations in (profile_start,
+                              profile_start + PROFILE_ITERATIONS):
             torch.cuda.synchronize()
             marks[eng.iterations] = time.perf_counter()
 
@@ -3131,18 +3188,100 @@ def serving_timed(torch, arch=LM_ARCH, max_new=LM_MAX_NEW,
         phase_s[name] = now - t_phase
         t_phase = now
 
-    first_iterations(WARMUP_ITERATIONS)                    # warm-up
+    first_iterations(warmup)                               # warm-up
+    levels_kernel.launches = 0
     eng, secs = run_engine_lm(torch, model, params, prompts, mark, max_new)
+    n_levels = levels_kernel.launches
     lap("throughput")
+    if n_levels != eng.iterations or n_levels == 0:
+        fail(f"serving timed {arch}: {n_levels} levels launches for "
+             f"{eng.iterations} iterations")
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     row = {"arch": arch, "params": "bfloat16", "attn_impl": engine_impl,
            "requests": LM_REQUESTS, "max_new_tokens": max_new,
            "generated_tokens": tokens, "seconds": secs,
            "tokens_per_s": tokens / secs, "iterations": eng.iterations,
+           "levels_launches": n_levels,
            "mean_wave": sum(eng.wave_sizes) / len(eng.wave_sizes),
            "ms_per_iteration": secs / eng.iterations * 1e3}
 
-    # fenced ms per decode wave and per prefill chunk
+    if eng.iterations < profile_start + PROFILE_ITERATIONS:
+        fail(f"serving timed {arch}: {eng.iterations} iterations, the "
+             f"profiled sample needs {profile_start + PROFILE_ITERATIONS}")
+    if fenced_and_syncs:
+        serving_fenced(torch, model, params, prompts, max_new, row)
+    lap("fenced")
+
+    # device busy / idle over iterations [profile_start, + 10): the same
+    # iterations of the unprofiled throughput run give the wall time
+    sample = first_iterations(profile_start)
+    # device activity only: the kernels' times are what is read (the wall
+    # comes from the unprofiled run), and the host's op events would cost
+    # the profiler more than the sample itself
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_ITERATIONS):
+            sample.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    if not kernels:
+        fail("serving: the profiler saw no device time")
+    if {e.name for e in kernels if e.name.startswith("protocol.")}:
+        fail("serving: profiler ranges counted as kernels")
+    us = Counter()
+    for e in kernels:
+        us[e.name] += e.device_time
+    busy_s = sum(us.values()) / 1e6
+    wall_s = marks[profile_start + PROFILE_ITERATIONS] - marks[profile_start]
+    row["profiled_iterations"] = [profile_start,
+                                  profile_start + PROFILE_ITERATIONS]
+    row["device_busy_ms"] = busy_s * 1e3
+    row["wall_ms"] = wall_s * 1e3
+    row["idle_share"] = 1.0 - busy_s / wall_s
+    row["kernels_per_iteration"] = len(kernels) / PROFILE_ITERATIONS
+    row["top"] = [[k[:60], t / 1e3] for k, t in us.most_common(5)]
+    lap("profile")
+
+    # host syncs per iteration, over the first profile_start iterations
+    if fenced_and_syncs:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                first_iterations(profile_start)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = len(sync_warnings(caught))
+        row["host_syncs_per_iteration"] = syncs / profile_start
+    lap("syncs")
+
+    # one-shot prefill at B = 1, T = 2048
+    import numpy as np
+
+    prompt = torch.as_tensor(np.random.RandomState(SEED + 1).randint(
+        0, model.cfg.vocab, size=LM_MAX_LEN).astype(np.int32),
+        device=DEVICE)[None]
+    max_len = LM_MAX_LEN + model.cfg.n_prefix_tokens
+    for impl in ("pallas", "chunked"):
+        m = lm_model(torch, "bfloat16", impl, arch)
+        row[f"prefill_{impl}_ms"] = median_time(
+            lambda: m.prefill(params, {"tokens": prompt},
+                              m.init_states(1, max_len))[0],
+            repeats=5) * 1e3
+    lap("prefill")
+    row["phase_seconds"] = phase_s
+    log(f"serving timed {arch}: " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def serving_fenced(torch, model, params, prompts, max_new, row) -> None:
+    """Fenced ms per decode wave and per prefill chunk over one more run
+    of the engine, into ``row``."""
+    from repro_torch.serving import ServingEngine
+
     fenced = {"_exec_prefill": [], "_exec_decode_wave": []}
     originals = {k: getattr(ServingEngine, k) for k in fenced}
 
@@ -3169,67 +3308,6 @@ def serving_timed(torch, arch=LM_ARCH, max_new=LM_MAX_NEW,
                                / len(fenced["_exec_prefill"]) * 1e3)
     row["decode_waves"] = len(fenced["_exec_decode_wave"])
     row["prefill_chunks"] = len(fenced["_exec_prefill"])
-
-    lap("fenced")
-
-    # device busy / idle over iterations [PROFILE_START, + 10): the same
-    # iterations of the unprofiled throughput run give the wall time
-    sample = first_iterations(PROFILE_START)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_ITERATIONS):
-            sample.step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if str(e.device_type).endswith("CUDA")
-               and not e.is_user_annotation]
-    if not kernels:
-        fail("serving: the profiler saw no device time")
-    if {e.name for e in kernels if e.name.startswith("protocol.")}:
-        fail("serving: profiler ranges counted as kernels")
-    us = Counter()
-    for e in kernels:
-        us[e.name] += e.device_time
-    busy_s = sum(us.values()) / 1e6
-    wall_s = marks[PROFILE_START + PROFILE_ITERATIONS] - marks[PROFILE_START]
-    row["profiled_iterations"] = [PROFILE_START,
-                                  PROFILE_START + PROFILE_ITERATIONS]
-    row["device_busy_ms"] = busy_s * 1e3
-    row["wall_ms"] = wall_s * 1e3
-    row["idle_share"] = 1.0 - busy_s / wall_s
-    row["kernels_per_iteration"] = len(kernels) / PROFILE_ITERATIONS
-    row["top"] = [[k[:60], t / 1e3] for k, t in us.most_common(5)]
-    lap("profile")
-
-    # host syncs per iteration, over the first PROFILE_START iterations
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            first_iterations(PROFILE_START)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = len(sync_warnings(caught))
-    row["host_syncs_per_iteration"] = syncs / PROFILE_START
-    lap("syncs")
-
-    # one-shot prefill at B = 1, T = 2048
-    import numpy as np
-
-    prompt = torch.as_tensor(np.random.RandomState(SEED + 1).randint(
-        0, model.cfg.vocab, size=LM_MAX_LEN).astype(np.int32),
-        device=DEVICE)[None]
-    for impl in ("pallas", "chunked"):
-        m = lm_model(torch, "bfloat16", impl, arch)
-        row[f"prefill_{impl}_ms"] = median_time(
-            lambda: m.prefill(params, {"tokens": prompt},
-                              m.init_states(1, LM_MAX_LEN))[0],
-            repeats=5) * 1e3
-    lap("prefill")
-    row["phase_seconds"] = phase_s
-    log(f"serving timed {arch}: " + json.dumps(row))
-    del params
-    torch.cuda.empty_cache()
 
 
 def flash_row(torch, launches, err):
@@ -3327,7 +3405,8 @@ def drive_lm(torch) -> tuple[dict, dict]:
     rwkv_launches = rwkv_serving_checked(torch)
     log(f"rwkv serving checked: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    serving_timed(torch, RWKV_ARCH, RWKV_MAX_NEW, "pallas")
+    serving_timed(torch, RWKV_ARCH, RWKV_MAX_NEW, "pallas",
+                  SHORT_PROFILE_START)
     log(f"rwkv serving timed: {time.perf_counter() - t0:.1f} s")
     return launches, rwkv_launches
 
@@ -3727,6 +3806,395 @@ def drive_training(torch) -> None:
     log(f"training timed {RWKV_ARCH}: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------ the families phase
+#: hymba-1.5b's serving cell: the serving phase's 16 requests (64-1,536
+#: prompt tokens, 6 of them past the window of 1,024 with the 128 meta
+#: tokens), 8 slots, max_len 2048, chunks of 128; 16 new tokens
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_MAX_NEW = 16
+#: the float32 check takes the first 8 of the requests (4 past the
+#: window; the cut order's fourth step), the bf16 timing all 16; the
+#: timing's warm-up is 5 iterations
+HYMBA_CHECK_REQUESTS = 8
+HYMBA_WARMUP = 5
+#: apply_train on the card against the host's CPU, float32, full width and
+#: depth: one sequence of this many tokens (+ the 128 meta tokens)
+HYMBA_CPU_TOKENS = 32
+#: float32 logits tolerances (absolute; logits are O(1)): the card against
+#: the host's CPU, and prefill + decode against the teacher-forced logits.
+#: Each must reject its planted fault (logged beside).
+HYMBA_CPU_TOL = 1e-3
+FAMILY_TOL = 1e-3
+#: the other families: the float32 check at B x T, the bf16 timing at
+#: B x T prompt tokens (patches or source frames included) and decode steps
+FAMILY_CHECK = (2, 16)
+FAMILY_TIMED = (8, 512, 8)
+#: depth (float32 check, bf16 timing): full width always; the depth cut
+#: only where one card's 80 GB forces it — qwen3-moe's 94 layers are 9.7 GB
+#: each in float32 (4.8 in bf16), internvl2's 80 are 3.4 GB (1.7), beside
+#: 5.0 / 8.4 GB of embeddings in float32
+FAMILY_LAYERS = {"qwen3-moe-235b-a22b": (6, 13),
+                 "seamless-m4t-medium": (None, None),
+                 "internvl2-76b": (18, 38)}
+
+
+def family_cfg(arch, dtype, attn_impl="pallas", n_layers=None, **changes):
+    """The config at full width in ``dtype`` through ``attn_impl``, its
+    depth cut to ``n_layers`` when given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(param_dtype=dtype, attn_impl=attn_impl,
+                                   **changes)
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def family_batch(torch, cfg, b, t, seed, dtype):
+    """A prompt batch of ``t`` positions as ``input_specs`` lays out a
+    prefill cell: the vision stub's patches take min(1024, t // 4) of
+    them, the encoder-decoder gets ``t`` source frames beside ``t``
+    tokens; embeddings of std 0.1 in ``dtype``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    n_patch = min(1024, t // 4) if cfg.frontend == "vision_stub" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, t - n_patch),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32)}
+    if n_patch:
+        batch["patch_embeds"] = (torch.randn(
+            (b, n_patch, cfg.d_model), generator=gen, device=DEVICE)
+            * 0.1).to(dtype)
+    if cfg.is_encdec:
+        batch["src_embeds"] = (torch.randn(
+            (b, t, cfg.d_model), generator=gen, device=DEVICE) * 0.1).to(dtype)
+    return batch
+
+
+def attention_layers(cfg) -> int:
+    """Flash launches of one forward through "pallas": one per attention
+    layer (the encoder's too)."""
+    return cfg.n_layers + cfg.enc_layers
+
+
+def hymba_checked(torch) -> dict:
+    """hymba-1.5b at full width and depth, float32, TF32 off: the engine's
+    tokens (levels launches counted) against per-request sequential
+    decoding whose one-shot prefill runs through flash (one launch per
+    layer and request), under the tie rule; then apply_train's logits on
+    the card (through flash) against the host CPU's, which must reject
+    the SSM branch without its ``d_skip`` term. Returns the launches."""
+    import numpy as np
+
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.kernels.levels import levels as levels_kernel
+    from repro_torch.models import build_model
+
+    no_tf32(torch)
+    model = lm_model(torch, "float32", "chunked", HYMBA_ARCH)
+    params = model.init(SEED, device=DEVICE)
+    seq_model = lm_model(torch, "float32", "pallas", HYMBA_ARCH)
+    cfg = model.cfg
+    prompts = lm_prompts(cfg.vocab)[:HYMBA_CHECK_REQUESTS]
+    past = sum(len(p) + cfg.n_prefix_tokens > cfg.sliding_window
+               for p in prompts)
+
+    levels_kernel.launches = 0
+    eng, secs = run_engine_lm(torch, model, params, prompts,
+                              max_new=HYMBA_MAX_NEW)
+    n_levels = levels_kernel.launches
+    t0 = time.perf_counter()
+    flash_kernel.launches = 0
+    seq = [sequential_lm(torch, seq_model, params, p, HYMBA_MAX_NEW)
+           for p in prompts]
+    seq_s = time.perf_counter() - t0
+    n_flash = flash_kernel.launches
+    if n_flash != cfg.n_layers * len(prompts):
+        fail(f"hymba serving: {n_flash} flash launches, expected one per "
+             f"layer and request ({cfg.n_layers * len(prompts)})")
+    if n_levels != eng.iterations or n_levels == 0:
+        fail(f"hymba serving: {n_levels} levels launches for "
+             f"{eng.iterations} iterations")
+    ties = check_tokens("hymba serving", eng, seq, HYMBA_MAX_NEW)
+
+    # apply_train at full width: the card (flash) against the host's CPU
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg.vocab, (1, HYMBA_CPU_TOKENS), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    flash_kernel.launches = 0
+    with torch.no_grad():
+        card, _ = seq_model.apply_train(params, {"tokens": toks})
+    if flash_kernel.launches != cfg.n_layers:
+        fail(f"hymba apply_train: {flash_kernel.launches} flash launches, "
+             f"expected {cfg.n_layers}")
+    cpu_model = build_model(seq_model.cfg, "cpu")
+    cpu_params = cpu_model.empty_params()
+    cpu_params.load_state_dict(params.state_dict())
+    del params
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        host, _ = cpu_model.apply_train(cpu_params, {"tokens": toks.cpu()})
+        cpu_err = float((card.cpu() - host).abs().max())
+        for seg in cpu_params.segments:     # the planted fault
+            for layer in seg:
+                layer.hymba.ssm.d_skip.zero_()
+        bad, _ = cpu_model.apply_train(cpu_params, {"tokens": toks.cpu()})
+        fault_err = float((card.cpu() - bad).abs().max())
+    if not torch.isfinite(card).all() or cpu_err > HYMBA_CPU_TOL:
+        fail(f"hymba apply_train: the card's float32 logits differ from "
+             f"the CPU's by {cpu_err} (> {HYMBA_CPU_TOL})")
+    if fault_err <= HYMBA_CPU_TOL:
+        fail(f"hymba apply_train: the tolerance {HYMBA_CPU_TOL} accepts "
+             f"the SSM branch without d_skip ({fault_err})")
+    row = {"arch": HYMBA_ARCH, "params": "float32", "requests": len(prompts),
+           "prompts_past_window": past, "max_new_tokens": HYMBA_MAX_NEW,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "generated_tokens": sum(len(r.out_tokens) for r in eng.finished),
+           "iterations": eng.iterations, "ties": ties,
+           "ring_slots_window": int(eng.states["segs"][1]["kv"].k.shape[3]),
+           "engine_seconds": secs, "sequential_seconds": seq_s,
+           "apply_train_card_vs_cpu_max_abs": cpu_err,
+           "apply_train_without_d_skip_max_abs": fault_err,
+           "max_abs_logit": float(host.abs().max()),
+           "launches": {"flash_attention": n_flash, "wave_levels": n_levels},
+           "stats": eng.run_stats()}
+    log("hymba checked: " + json.dumps(row))
+    del cpu_params, cpu_model, model, seq_model, eng
+    return {"flash_attention": n_flash + cfg.n_layers,
+            "wave_levels": n_levels}
+
+
+def encoder_checked(torch, params, src, cfg) -> tuple[dict, int]:
+    """The encoder-decoder's encoder at full width, float32: ``run_encoder``
+    on the card (flash in every encoder layer, no mask) against the host
+    CPU's on the same weights and ``src`` frames, within FAMILY_TOL (the
+    reference's plan gives the decoder no cross-attention, so no logit
+    reads the encoder); a causal encoder and a zeroed ``enc_final_norm``
+    on the CPU must fall outside it. Returns (row, flash launches)."""
+    import copy
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import (
+        Segment,
+        run_encoder,
+        run_segment,
+    )
+
+    flash_kernel.launches = 0
+    with torch.no_grad():
+        card = run_encoder(params, src, cfg).cpu()
+    n_flash = flash_kernel.launches
+    if n_flash != cfg.enc_layers:
+        fail(f"encoder: {n_flash} flash launches, expected {cfg.enc_layers}")
+    host = SimpleNamespace(
+        enc_segments=copy.deepcopy(params.enc_segments).cpu(),
+        enc_final_norm=copy.deepcopy(params.enc_final_norm).cpu())
+    x = src.cpu()
+
+    def causal(p):
+        h = x
+        pos = torch.arange(x.shape[1])
+        for layers in p.enc_segments:
+            h, _ = run_segment(Segment("attn", len(layers)), layers, h, cfg,
+                               positions=pos, mode="train")
+        return rmsnorm(p.enc_final_norm, h, cfg.norm_eps)
+
+    with torch.no_grad():
+        err = float((card - run_encoder(host, x, cfg)).abs().max())
+        faults = {"causal encoder": causal(host)}
+        host.enc_final_norm.scale.zero_()
+        faults["enc_final_norm zeroed"] = run_encoder(host, x, cfg)
+    if not torch.isfinite(card).all() or err > FAMILY_TOL:
+        fail(f"encoder: the card's float32 output differs from the CPU's "
+             f"by {err} (> {FAMILY_TOL})")
+    fault_errs = {}
+    for name, out in faults.items():
+        fault_errs[name] = float((card - out).abs().max())
+        if fault_errs[name] <= FAMILY_TOL:
+            fail(f"encoder: the tolerance {FAMILY_TOL} accepts the "
+                 f"{name} ({fault_errs[name]})")
+    return {"src": list(src.shape), "card_vs_cpu_max_abs": err,
+            "planted_faults_max_abs": fault_errs,
+            "max_abs": float(card.abs().max()),
+            "flash_launches": n_flash}, n_flash
+
+
+def family_checked(torch, arch, n_layers) -> int:
+    """Float32, TF32 off, through "pallas" (flash in every attention layer
+    of the teacher-forced pass and the prefill), MoE at dropless capacity
+    (8.0, as the reference's own check): the last-prompt-token logits of a
+    prefill of T - 1 tokens and those of one decode step against the
+    teacher-forced logits at those positions, within FAMILY_TOL; a decode
+    with a planted fault must fall outside it. The encoder-decoder's
+    encoder is held against the host CPU's (``encoder_checked``). Returns
+    flash launches."""
+    import dataclasses
+
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.models import build_model
+
+    no_tf32(torch)
+    cfg = family_cfg(arch, "float32", n_layers=n_layers)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=8.0))
+    model = build_model(cfg, DEVICE)
+    params = model.init(SEED, device=DEVICE)
+    b, t = FAMILY_CHECK
+    batch = family_batch(torch, cfg, b, t, SEED + 3, torch.float32)
+    toks = batch["tokens"]
+    tn = toks.shape[1]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    flash_kernel.launches = 0
+    with torch.no_grad():
+        lt, aux = model.apply_train(params, batch)
+    n_train = flash_kernel.launches
+
+    def prefill_decode(fault=None):
+        st = model.init_states(b, t + 8)
+        pre = {"tokens": toks[:, :tn - 1], **extra}
+        if fault == "patches dropped":
+            pre.pop("patch_embeds")
+        lp, st = model.prefill(params, pre, st)
+        if fault == "position off by one":
+            with torch.inference_mode():   # the states are inference tensors
+                st["pos"].add_(1)
+        m, p_ = model, params
+        if fault == "top-7 routing":
+            m = build_model(cfg.replace(moe=dataclasses.replace(
+                cfg.moe, top_k=cfg.moe.top_k - 1)), DEVICE)
+        ld, _ = m.decode_step(p_, toks[:, tn - 1:], st)
+        return lp, ld
+
+    flash_kernel.launches = 0
+    lp, ld = prefill_decode()
+    n_prefill = flash_kernel.launches
+    want = attention_layers(cfg)
+    if n_train != want or n_prefill != want:
+        fail(f"{arch} float32: flash launched {n_train} times in the "
+             f"teacher-forced pass and {n_prefill} in prefill + decode, "
+             f"expected {want} each")
+    err = max(float((lp - lt[:, tn - 2]).abs().max()),
+              float((ld - lt[:, tn - 1]).abs().max()))
+    if not torch.isfinite(lt).all() or err > FAMILY_TOL:
+        fail(f"{arch} float32: prefill/decode logits differ from the "
+             f"teacher-forced ones by {err} (> {FAMILY_TOL})")
+    faults = ["position off by one"]
+    if cfg.moe is not None:
+        faults.append("top-7 routing")
+    if cfg.frontend == "vision_stub":
+        faults.append("patches dropped")
+    fault_errs = {}
+    for fault in faults:
+        flp, fld = prefill_decode(fault)
+        fault_errs[fault] = max(float((flp - lt[:, tn - 2]).abs().max()),
+                                float((fld - lt[:, tn - 1]).abs().max()))
+        if fault_errs[fault] <= FAMILY_TOL:
+            fail(f"{arch} float32: the tolerance {FAMILY_TOL} accepts a "
+                 f"decode with {fault} ({fault_errs[fault]})")
+    row = {"arch": arch, "params": "float32", "n_layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "batch": [b, t],
+           "inputs": {k: list(v.shape) for k, v in batch.items()},
+           "prefill_decode_vs_train_max_abs": err,
+           "planted_faults_max_abs": fault_errs,
+           "max_abs_logit": float(lt.abs().max()),
+           "overflow_fraction": float(aux["overflow_fraction"]),
+           "flash_launches": {"train": n_train, "prefill": n_prefill}}
+    n_enc = 0
+    if cfg.is_encdec:
+        row["encoder"], n_enc = encoder_checked(torch, params,
+                                                batch["src_embeds"], cfg)
+    log(f"family checked {arch}: " + json.dumps(row))
+    del params, model, lt
+    torch.cuda.empty_cache()
+    return n_train + n_prefill + n_enc
+
+
+def family_timed(torch, arch, n_layers) -> int:
+    """bf16 through "pallas": one-shot prefill ms (median of 3, after a
+    warm-up) at FAMILY_TIMED's B x T, then ms per decode step over its
+    steps after one more prefill (flash launches counted over all five);
+    MoE's overflow fraction (mean over the layers) of the same batch in a
+    train pass at the config's capacity. Returns flash launches."""
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import forward_hidden
+    from repro_torch.utils.timing import median_time
+
+    cfg = family_cfg(arch, "bfloat16", n_layers=n_layers)
+    model = build_model(cfg, DEVICE)
+    params = model.init(SEED, device=DEVICE)
+    b, t, steps = FAMILY_TIMED
+    batch = family_batch(torch, cfg, b, t, SEED + 4, torch.bfloat16)
+    max_len = t + steps + 8
+    torch.cuda.reset_peak_memory_stats()
+    flash_kernel.launches = 0
+    prefill = median_time(lambda: model.prefill(
+        params, batch, model.init_states(b, max_len))[0], repeats=3,
+        warmup=1)
+    st = model.init_states(b, max_len)
+    logits, st = model.prefill(params, batch, st)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, st = model.decode_step(params, tok, st)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / steps * 1e3
+    n_flash = flash_kernel.launches
+    if n_flash != 5 * attention_layers(cfg):
+        fail(f"{arch} bf16: {n_flash} flash launches over 5 prefills and "
+             f"{steps} decode steps, expected {5 * attention_layers(cfg)}")
+    if not torch.isfinite(logits).all():
+        fail(f"{arch} bf16: non-finite decode logits")
+    row = {"arch": arch, "params": "bfloat16", "n_layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "batch": [b, t],
+           "inputs": {k: list(v.shape) for k, v in batch.items()},
+           "prefill_ms": prefill * 1e3,
+           "prefill_ms_samples": [x * 1e3 for x in prefill.samples],
+           "prefill_tokens_per_s": b * t / prefill,
+           "decode_steps": steps, "decode_ms_per_step": decode_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.moe is not None:
+        with torch.no_grad():
+            x, _ = model._embed_inputs(params, batch)
+            _, _, aux = forward_hidden(
+                params, x, cfg, positions=torch.arange(x.shape[1],
+                                                       device=DEVICE))
+        row["overflow_fraction"] = float(aux["overflow_fraction"]) \
+            / cfg.n_layers
+        row["capacity_factor"] = cfg.moe.capacity_factor
+    log(f"family timed {arch}: " + json.dumps(row))
+    del params, model, st
+    torch.cuda.empty_cache()
+    return n_flash
+
+
+def drive_families(torch) -> dict:
+    """The families phase: hymba-1.5b checked at float32 and timed at bf16
+    through the serving engine (the slice's main path: flash in the
+    one-shot prefill, the levels kernel in the scheduler), then the MoE,
+    encoder-decoder and vision-stub families through prefill / decode /
+    apply_train. Returns the launches of flash and levels."""
+    t0 = time.perf_counter()
+    launches = hymba_checked(torch)
+    log(f"hymba checked: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row = serving_timed(torch, HYMBA_ARCH, HYMBA_MAX_NEW, "chunked",
+                        SHORT_PROFILE_START, fenced_and_syncs=False,
+                        warmup=HYMBA_WARMUP)
+    launches["wave_levels"] += row["levels_launches"]
+    log(f"hymba timed: {time.perf_counter() - t0:.1f} s")
+    for arch, (check_layers, timed_layers) in FAMILY_LAYERS.items():
+        t0 = time.perf_counter()
+        launches["flash_attention"] += family_checked(torch, arch,
+                                                      check_layers)
+        launches["flash_attention"] += family_timed(torch, arch,
+                                                    timed_layers)
+        log(f"family {arch}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tasks", type=int, default=None,
@@ -3861,6 +4329,10 @@ def main(argv=None) -> None:
     drive_training(torch)
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    family_launches = drive_families(torch)
+    log(f"families phase: {time.perf_counter() - t0:.1f} s")
+
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)
         + "; task-size phase: " + json.dumps(wide_launches)
@@ -3868,12 +4340,14 @@ def main(argv=None) -> None:
         + "; sharded phase: " + json.dumps(sharded_launches)
         + "; SIS on BA: " + json.dumps(ba_launches)
         + "; serving path: " + json.dumps(lm_launches)
-        + "; rwkv serving path: " + json.dumps(rwkv_launches))
+        + "; rwkv serving path: " + json.dumps(rwkv_launches)
+        + "; families phase: " + json.dumps(family_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
              + hub_launches.get(k, 0) + sharded_launches[k]
              + ba_launches.get(k, 0) for k, v in ov_launches.items()}
     total["levels"] += (lm_launches["wave_levels"]
-                        + rwkv_launches["wave_levels"])
+                        + rwkv_launches["wave_levels"]
+                        + family_launches["wave_levels"])
     rows = kernel_rows(torch, models, ov_models, total, errs)
     rows += wave_kernel_rows(
         torch, ov_models, wide,
@@ -3882,7 +4356,8 @@ def main(argv=None) -> None:
          "sir_wave s=50": ov_launches["sir_wave"]
          + sharded_launches["sir_wave"]}, errs)
     rows.append(wkv6_row(torch, rwkv_launches["wkv6"], errs["wkv6"]))
-    rows.append(flash_row(torch, lm_launches["flash_attention"],
+    rows.append(flash_row(torch, lm_launches["flash_attention"]
+                          + family_launches["flash_attention"],
                           errs["flash_attention"]))
     rows += attach_rows
     log(f"total: {time.perf_counter() - t_start:.1f} s")

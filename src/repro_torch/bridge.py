@@ -18,10 +18,11 @@ here. Every function places its result on ``device`` (default: the card).
                        tree, stacked ``[L, ...]`` segment leaves unstacked
                        per layer
   lm_states_from_numpy the reference's serving states (``segs`` of KV
-                       caches with ``k``, ``v``, ``length``, ``kpos``, or
-                       of RWKV states ``tm.last``, ``tm.s``, ``cm.last``;
-                       and ``pos``) -> the port's (and back with
-                       ``lm_states_to_numpy``)
+                       caches with ``k``, ``v``, ``length``, ``kpos``, of
+                       hymba's ``{"kv", "ssm"}``, or of RWKV states
+                       ``tm.last``, ``tm.s``, ``cm.last``; ``pos``, and
+                       the encoder-decoder's ``enc_out``) -> the port's
+                       (and back with ``lm_states_to_numpy``)
   lm_params_to_numpy   the port's ``LMParams`` — or a dict of gradients
                        keyed by the parameters' names — -> the reference's
                        parameter pytree, segment leaves stacked
@@ -209,9 +210,10 @@ def _is_kv(x) -> bool:
 
 def lm_states_from_numpy(states: dict, device=None) -> dict:
     """Serving states of the reference (``segs``: per segment a tree of
-    stacked leaves — ``{"kv": KVCache}``, or the RWKV ``{"tm": {"last",
-    "s"}, "cm": {"last"}}``; ``pos``), numpy leaves, as the port's states
-    on ``device``."""
+    stacked leaves — ``{"kv": KVCache}``, hymba's ``{"kv": KVCache,
+    "ssm"}``, or the RWKV ``{"tm": {"last", "s"}, "cm": {"last"}}``;
+    ``pos``; ``enc_out``), numpy leaves, as the port's states on
+    ``device``."""
     from repro_torch.models.attention import KVCache, map_state
 
     dev = resolve_device(device)
@@ -221,15 +223,16 @@ def lm_states_from_numpy(states: dict, device=None) -> dict:
             return KVCache(*(_tensor(_kv_leaf(x, n), dev) for n in _KV))
         return _tensor(x, dev)
 
+    out = {k: _tensor(v, dev) for k, v in states.items() if k != "segs"}
     return {"segs": [map_state(leaf, s, is_leaf=_is_kv)
-                     for s in states["segs"]],
-            "pos": _tensor(states["pos"], dev)}
+                     for s in states["segs"]], **out}
 
 
 def lm_states_to_numpy(states: dict) -> dict:
     """A numpy copy of the port's serving states: ``segs`` of
-    ``{"kv": {"k", "v", "length", "kpos"}}`` or ``{"tm": {"last", "s"},
-    "cm": {"last"}}`` (float leaves as float32) and ``pos``."""
+    ``{"kv": {"k", "v", "length", "kpos"}}`` (with hymba's ``ssm``) or
+    ``{"tm": {"last", "s"}, "cm": {"last"}}`` (float leaves as float32),
+    ``pos`` and, for the encoder-decoder, ``enc_out``."""
     from repro_torch.models.attention import KVCache, map_state
 
     def leaf(x):  # copies: the port updates its states in place
@@ -237,6 +240,7 @@ def lm_states_to_numpy(states: dict) -> dict:
             return {n: _numpy(getattr(x, n)) for n in _KV}
         return _numpy(x)
 
+    out = {k: _numpy(v) for k, v in states.items() if k != "segs"}
     return {"segs": map_state(leaf, list(states["segs"]),
                               is_leaf=lambda x: isinstance(x, KVCache)),
-            "pos": _numpy(states["pos"])}
+            **out}

@@ -15,9 +15,13 @@
 // Masked scores are −inf; a row whose keys so far are all masked keeps
 // m = −inf and is left untouched by the tile (the guard the TPU kernel's
 // finite −1e30 sentinel makes unnecessary there); a row that never sees a
-// valid key (only possible for T > S, which the binding refuses) comes
-// out as zeros, as the TPU kernel's l == 0 -> 1 rule gives. Any T <= S
-// and any S: ragged q and kv tiles are masked, not padded in memory.
+// valid key (only possible for T > S under a mask, which the entry point
+// refuses) comes out as zeros, as the TPU kernel's l == 0 -> 1 rule gives.
+// Any T and S >= 1, T > S without a causal mask or a window only (the
+// encoder-decoder's cross-attention): there pos = t + S − T is negative
+// for the first rows, but no mask reads it — k_begin is 0 and k_end is S,
+// and the tile-skip test masks only the ragged last tile. Ragged q and kv
+// tiles are masked, not padded in memory.
 //
 // What bounds it on this card: operations. At smollm-360m's prefill
 // (H 15, Hkv 5, D 64, T = S = 2048, causal, bf16) the two products are
@@ -618,7 +622,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 // q [bh, t, d], k and v [bh / n_heads · n_kv_heads, s, d], o [bh, t, d]:
 // contiguous on the device, float32 (dtype 0: the CUDA-core kernel) or
-// bfloat16 (dtype 1: the tensor-core kernel); 1 <= d <= 128, t <= s,
+// bfloat16 (dtype 1: the tensor-core kernel); 1 <= d <= 128, s >= 1,
+// t <= s unless the call is unmasked (causal 0, window < 1),
 // n_heads % n_kv_heads == 0, bh % n_heads == 0; window < 1 = none.
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 // Allocates nothing.
@@ -628,7 +633,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int s_len, int d, int causal,
                                       int window, float scale, int dtype,
                                       void* stream) {
-  if (bh <= 0 || t_len <= 0 || d < 1 || d > MAX_D || t_len > s_len ||
+  if (bh <= 0 || t_len <= 0 || s_len <= 0 || d < 1 || d > MAX_D ||
+      (t_len > s_len && (causal || window > 0)) ||
       n_heads <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads ||
       bh % n_heads)
     return (int)cudaErrorInvalidValue;

@@ -5,7 +5,11 @@ attention with an online softmax in float32, causal and sliding-window
 masks, GQA through the kv head index, queries aligned to the end of the
 keys when S > T, and tiles the masks leave empty never visited (see the
 source's note for the design and what bounds it). Unlike the TPU kernel
-it takes any T <= S and any S: the kernel masks the ragged tails. The
+it takes any T and S, with no block multiples: the kernel masks the
+ragged tails. T > S (the encoder-decoder's cross-attention when the
+decoder's tokens outnumber the source frames) is taken without a mask
+only: under a causal mask or a window the first T − S rows would see no
+key, a case no model reaches, so the binding refuses it. The
 source holds two kernels, chosen by dtype: bfloat16 runs both products on
 the tensor cores (mma.sync), float32 on the CUDA cores in float32 (TF32
 would not meet its tolerance). ``launches`` counts the launches of this
@@ -31,6 +35,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
 
+def check_masked_rows(t: int, s: int, causal: bool, window) -> None:
+    """Refuse the shapes whose rows could see no key: S = 0, and T > S
+    under a causal mask or a window (queries aligned to the end of the
+    keys put the first T − S rows before key 0)."""
+    if s < 1:
+        raise ValueError(f"attention needs at least one key: S={s}")
+    if t > s and (causal or window is not None):
+        raise ValueError(f"T > S is taken without a mask only (the first "
+                         f"T - S rows would see no key): T={t}, S={s}, "
+                         f"causal={causal}, window={window}")
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -47,7 +63,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, n_q_heads: int, n_kv_heads: int, causal: bool,
                          window: int | None, scale: float) -> torch.Tensor:
     """q [B·H, T, D]; k, v [B·Hkv, S, D]; float32 or bfloat16, one dtype,
-    contiguous on one CUDA device; T <= S, D <= 128. Returns o
+    contiguous on one CUDA device; S >= 1, T <= S under a causal mask or
+    a window (any T without either), D <= 128. Returns o
     [B·H, T, D] in q's dtype (float32 accumulation)."""
     global launches
     if q.device.type != "cuda":
@@ -68,11 +85,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h <= 0 or hkv <= 0 or h % hkv or bh % h or bkv != bh // h * hkv:
         raise ValueError(f"heads do not match: q {bh} rows of H={h}, kv "
                          f"{bkv} rows of Hkv={hkv}")
-    if t > s:
-        raise ValueError(f"the kernel aligns queries to the end of the "
-                         f"keys and takes T <= S: T={t}, S={s}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    check_masked_rows(t, s, causal, window)
     dev = q.device
     check_tensor("q", q, q.dtype, (bh, t, d), dev)
     check_tensor("k", k, q.dtype, (bkv, s, d), dev)

@@ -11,7 +11,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import refuse_grad, use_kernel
-from repro_torch.kernels.flash.flash import flash_attention_cuda
+from repro_torch.kernels.flash.flash import (
+    check_masked_rows,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.flash.ref import attention_ref
 
 
@@ -21,11 +24,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, H, T, D]; k, v [B, Hkv, S, D] (GQA via H % Hkv == 0).
 
     Sliding ``window`` w: query t attends keys (t-w, t]; requires causal.
-    Ends are aligned when S > T (chunked prefill semantics).
+    Ends are aligned when S > T (chunked prefill semantics). T > S is
+    taken without a mask (cross-attention); with one it raises on either
+    device, as the kernel's binding does.
     """
     refuse_grad("flash_attention", q, k, v)
     b, h, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
+    check_masked_rows(t, s, causal, window)
     if scale is None:
         scale = float(d) ** -0.5
     if not use_kernel(q):

@@ -12,7 +12,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     window w: query t attends to keys in (t-w, t] (requires causal).
     When S > T the query block is aligned to the *end* of the key axis
-    (chunked prefill / decode semantics).
+    (chunked prefill / decode semantics); T > S without a mask is plain
+    cross-attention. A row that sees no key (T > S under a causal mask or
+    a window) comes out NaN: the kernel's wrapper refuses those shapes.
     Returns [B, H, T, D] in q's dtype; softmax accumulates in float32.
     """
     b, h, t, d = q.shape

@@ -12,6 +12,14 @@ CPU only when named):
       --requests 8 --max-new 16 --max-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --reduced --device cpu
+
+Every decoder-only family serves (dense, ssm, hybrid, moe, vlm — the
+last without patches: the engine takes token prompts). The
+encoder-decoder takes source frames (``src_embeds``) that no request
+carries, so ``--arch seamless-m4t-medium`` is refused, where the
+reference's launcher fails inside its engine.
 
 Weights are random, drawn from ``--seed``; prompts are token ids drawn
 from the same seed with numpy.
@@ -48,6 +56,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encdec:
+        raise SystemExit(f"{cfg.name}: the serving engine takes token "
+                         f"prompts; the encoder-decoder needs source "
+                         f"frames (src_embeds), which no request carries")
     model = build_model(cfg, device)
     params = model.init(args.seed, device=device)
 

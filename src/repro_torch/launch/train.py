@@ -8,6 +8,14 @@ CPU only when named):
       --steps 200 --batch 8 --seq 1024 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduced --device cpu --steps 3 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3-moe-235b-a22b --reduced --device cpu --steps 3 \\
+      --ckpt-dir /tmp/ckpt_moe
+
+Every family trains on the token stream (MoE with its aux losses, hymba
+with its meta tokens, the VLM without patches). The encoder-decoder
+needs source frames the stream does not make: as in the reference's
+launcher, its loss fails for want of ``src_embeds``.
 
 Weights are random, drawn from ``--seed``; the data is the synthetic
 stream of ``train/data.py`` from the same seed. A second run with the same

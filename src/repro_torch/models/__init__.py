@@ -1,6 +1,7 @@
-"""The LM substrate: layers, attention with the ring KV cache, the decoder
-stack of the dense family and the ``Model`` API (ports of
-``repro/models/{layers,attention,transformer,api}.py``)."""
-from repro_torch.models.api import Model, build_model
+"""The LM substrate: layers, attention with the ring KV cache, the SSD
+scan, the hymba block, the MoE layer, the RWKV6 block, the decoder and
+encoder stacks and the ``Model`` API (ports of ``repro/models/{layers,
+attention,ssm,hymba,moe,rwkv6,transformer,api}.py``)."""
+from repro_torch.models.api import EncDecModel, Model, build_model, input_specs
 
-__all__ = ["Model", "build_model"]
+__all__ = ["EncDecModel", "Model", "build_model", "input_specs"]

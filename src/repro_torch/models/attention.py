@@ -15,13 +15,26 @@ All three share semantics: causal masking, sliding window, GQA head
 grouping, end-alignment when S > T.
 
 KV cache: a *ring buffer* of capacity Smax with absolute-position tracking
-(``kpos``); for sliding-window layers Smax = window. Unlike the reference,
-whose cache updates return new arrays, the port writes the ring **in
-place** (``_ring_update``), and only the rows a ``commit`` mask names: a
-decode step computed for every slot of a batch advances only the slots
-of the wave, and leaves every other slot's ``k``, ``v``, ``length`` and
-``kpos`` as they were — the reference's masked merge, without copying
+(``kpos``); for sliding-window layers Smax = window. Unlike the
+reference, whose cache updates return new arrays, the port writes the
+ring **in place** (``_ring_update``), and only the rows a ``commit`` mask
+names: a decode step computed for every slot of a batch advances only the
+slots of the wave, and leaves every other slot's ``k``, ``v``, ``length``
+and ``kpos`` as they were — the reference's masked merge, without copying
 the cache.
+
+A decode or chunk step attends over the ring and its own fresh keys,
+masked by absolute position, and writes the ring afterwards (the
+reference writes first). Every row, committed or not, then attends as
+the reference's rows do before its merge; an idle row's output matters
+where a MoE layer routes it beside the others. A decode step sees the
+reference's keys. A chunk step that wraps a window ring also keeps the
+keys its first queries still see, which the reference's ring has
+already overwritten: past the window its chunked prefill equals one-shot
+prefill, where the reference's does not.
+
+Cross-attention (the encoder-decoder's ``xdec`` layers): ``kv_input``
+gives K/V, no rope, no mask, no cache.
 """
 from __future__ import annotations
 
@@ -87,7 +100,10 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
 
 
-def init_attention(init, cfg, *, d_model=None) -> Attention:
+def init_attention(init, cfg, *, d_model=None, cross=False) -> Attention:
+    """The four projections. ``cross`` (the decoder's cross-attention)
+    takes the same shapes, as in the reference: its K/V read the encoder's
+    output, of width d_model too."""
     d = d_model or cfg.d_model
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg.param_dtype)
@@ -165,20 +181,26 @@ def attention_inner(q, k, v, *, causal=True, window=None, scale=None,
                          chunk=chunk, gqa_expand=gqa_expand)
 
 
-def _attn_cache(q, cache: KVCache, qpos0, *, causal=True, window=None):
-    """Attention of q [B, H, T, hd] against a ring-buffer cache; masking by
-    absolute slot positions (kpos, per request). Materialized [T, Smax]
-    logits — used for decode (T == 1) and chunked-prefill steps."""
+def _attn_cache(q, k_new, v_new, cache: KVCache, *, causal=True,
+                window=None):
+    """Attention of q [B, H, T, hd], the tokens at positions ``length ..
+    length + T - 1``, over the ring's keys and the T fresh ones k_new /
+    v_new [B, Hkv, T, hd], the ring not yet written; masking by absolute
+    positions (kpos, per request). Materialized [T, Smax + T] logits —
+    used for decode (T == 1) and chunked-prefill steps. The fresh keys
+    are rounded to the cache's dtype first, as the ring would hold them."""
     b, h, t, hd = q.shape
-    k, v = cache.k, cache.v
-    hkv = k.shape[1]
-    group = h // hkv
-    qg = q.reshape(b, hkv, group, t, hd)
-    logits = torch.einsum("bkgtd,bksd->bkgts", qg.float(),
-                          k.float()) * (hd ** -0.5)
-    kpos = cache.kpos[:, None, :]                                # [B, 1, S]
-    qpos = (qpos0[:, None, None]
-            + torch.arange(t, device=q.device)[None, :, None])   # [B, T, 1]
+    hkv, smax = cache.k.shape[1], cache.k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, t, hd).float()
+    k_new = k_new.to(cache.k.dtype).float()
+    v_new = v_new.to(cache.v.dtype).float()
+    logits = torch.cat(
+        [torch.einsum("bkgtd,bksd->bkgts", qg, cache.k.float()),
+         torch.einsum("bkgtd,bksd->bkgts", qg, k_new)], dim=-1) * (hd ** -0.5)
+    qpos = (cache.length[:, None]
+            + torch.arange(t, device=q.device, dtype=torch.int32))  # [B, T]
+    kpos = torch.cat([cache.kpos, qpos], dim=1)[:, None, :]  # [B, 1, S + T]
+    qpos = qpos[:, :, None]                                       # [B, T, 1]
     mask = kpos >= 0
     if causal:
         mask = mask & (kpos <= qpos)
@@ -186,7 +208,8 @@ def _attn_cache(q, cache: KVCache, qpos0, *, causal=True, window=None):
         mask = mask & (kpos > qpos - window)
     logits = torch.where(mask[:, None, None], logits, -1e30)
     p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
+    o = (torch.einsum("bkgts,bksd->bkgtd", p[..., :smax], cache.v.float())
+         + torch.einsum("bkgts,bksd->bkgtd", p[..., smax:], v_new))
     return o.reshape(b, h, t, hd).to(q.dtype)
 
 
@@ -205,11 +228,18 @@ def _ring_update(cache: KVCache, k_new, v_new,
                  commit: Optional[torch.Tensor] = None) -> None:
     """Write t new timesteps into the ring buffer in place, at per-request
     offsets: token ``length + i`` goes to slot ``(length + i) % Smax``,
-    ``kpos`` records its position and ``length`` advances by t.
-    k_new [B, Hkv, t, hd]. ``commit`` ([B] bool, None = all) names the
-    rows that advance: the others keep their ring unchanged."""
+    ``kpos`` records its position and ``length`` advances by t; of more
+    than Smax, only the last Smax are written (the older ones could never
+    be attended again). k_new [B, Hkv, t, hd]. ``commit`` ([B] bool, None
+    = all) names the rows that advance: the others keep their ring
+    unchanged."""
     b, _, t, _ = k_new.shape
     smax = cache.k.shape[2]
+    if t > smax:
+        skipped = t - smax
+        cache.length.add_(skipped if commit is None
+                          else commit.to(torch.int32) * skipped)
+        k_new, v_new, t = k_new[:, :, skipped:], v_new[:, :, skipped:], smax
     pos = (cache.length[:, None]
            + torch.arange(t, device=k_new.device, dtype=torch.int32))
     slots = (pos % smax).long()                                   # [B, t]
@@ -231,54 +261,46 @@ def _ring_update(cache: KVCache, k_new, v_new,
 
 # ------------------------------------------------------------- full layer
 def attention(params: Attention, x, cfg, *, positions, causal=True,
-              window=None, cache: Optional[KVCache] = None,
+              window=None, cache: Optional[KVCache] = None, kv_input=None,
               mode: str = "train", commit: Optional[torch.Tensor] = None):
     """x [B, T, D]. Returns out [B, T, D]; the cache is updated in place.
+    ``kv_input`` [B, S, D]: the cross-attention's source (K and V are
+    projected from it; default x); with ``positions=None`` no rope.
 
     mode: "train" (no cache) | "prefill" (attention over the fresh k/v via
-    ``cfg.attn_impl``, then the last Smax timesteps written into the ring)
-    | "decode" / "chunk" (ring update, then attention against the cache).
-    ``commit`` ([B] bool) limits the ring update to those rows (decode).
+    ``cfg.attn_impl``) | "decode" / "chunk" (attention over the cache and
+    the fresh k/v); with a cache, the fresh k/v are then written into the
+    ring. ``commit`` ([B] bool) limits the ring update to those rows
+    (decode).
     """
     b, t, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if kv_input is None else kv_input
+    s = src.shape[1]
 
     q = dense(params.wq, x).reshape(b, t, hq, hd)
-    k = dense(params.wk, x).reshape(b, t, hkv, hd)
-    v = dense(params.wv, x).reshape(b, t, hkv, hd)
+    k = dense(params.wk, src).reshape(b, s, hkv, hd)
+    v = dense(params.wv, src).reshape(b, s, hkv, hd)
 
     if positions is not None:                   # rope (self-attention only)
         q = rope(q, positions, cfg.rope_theta)
         kpos = positions if cache is None else (
             cache.length[:, None]
-            + torch.arange(t, device=x.device, dtype=torch.int32)[None, :])
+            + torch.arange(s, device=x.device, dtype=torch.int32)[None, :])
         k = rope(k, kpos, cfg.rope_theta)
 
     q = q.transpose(1, 2)                       # [B, H, T, hd]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
 
-    if cache is not None and mode == "prefill":
-        # attention over the fresh k/v, then persist the last Smax
-        # timesteps into the ring with their absolute positions (older
-        # ones could never be attended again)
-        o = attention_inner(q, k, v, causal=causal, window=window,
-                            impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-                            gqa_expand=cfg.gqa_expand)
-        smax = cache.k.shape[2]
-        tail = min(smax, t)
-        skipped = t - tail
-        if skipped:
-            cache.length.add_(skipped)
-        _ring_update(cache, k[:, :, skipped:], v[:, :, skipped:])
-    elif cache is not None:                     # decode / chunk
-        qpos0 = cache.length.clone()
-        _ring_update(cache, k, v, commit)
-        o = _attn_cache(q, cache, qpos0, causal=causal, window=window)
+    if cache is not None and mode != "prefill":     # decode / chunk
+        o = _attn_cache(q, k, v, cache, causal=causal, window=window)
     else:
         o = attention_inner(q, k, v, causal=causal, window=window,
                             impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                             gqa_expand=cfg.gqa_expand)
+    if cache is not None:
+        _ring_update(cache, k, v, commit)
 
     out = o.transpose(1, 2).reshape(b, t, hq * hd)
     return dense(params.wo, out)

@@ -22,6 +22,13 @@ levels kernel, once per iteration. Long prompts are split into
 ``prefill_chunk`` tasks so that a long prompt never blocks the decode
 wave of the other requests.
 
+Past a sliding window the engine's tokens differ from the reference
+engine's: a prefill chunk attends over its ring and its own fresh keys
+before it writes the ring (``models/attention.py``), so it keeps the
+keys its first queries still see, which the reference's ring has already
+overwritten. The engine then equals one-shot prefill and decoding, and
+the reference's engine does not. Below the window the two agree.
+
 State handling differs from the reference's copies, not in result: the
 model writes its states in place. A slot's state is read as views of the
 stacked states (``_gather_state``), so a prefill chunk writes straight
@@ -30,8 +37,8 @@ into its slot; a new request's slot is reset with one copy per leaf
 reference's do, so a KV ring and an RWKV state alike. The decode wave
 computes every slot but commits only the wave's
 (``decode_step(commit=...)``), so a slot that is mid-prefill or idle
-keeps its ``length``, ``kpos``, ``k`` and ``v`` (or its RWKV ``s`` and
-token-shift ``last``s) and ``pos``.
+keeps its ``length``, ``kpos``, ``k`` and ``v`` (and hymba's SSM state,
+or its RWKV ``s`` and token-shift ``last``s) and ``pos``.
 """
 from __future__ import annotations
 

@@ -62,7 +62,11 @@ def make_train_step(model, hp: TrainHParams):
 
     def grads_of(params, leaves, batch):
         loss, metrics = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a parameter the loss does not reach (seamless-m4t's encoder, as
+        # planned in the reference) gets a zero gradient, as jax.grad's
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))]
         return grads, {**{k: v.detach() for k, v in metrics.items()},
                        "loss": loss.detach()}
 

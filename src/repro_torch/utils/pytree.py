@@ -14,7 +14,8 @@ join the keys with ``.``: ``params.segments.0.3.attn.wq.w``,
 names), ``opt.count``, ``step``. The reference stacks every segment's
 layers into one leaf ``[L, ...]``, so a port leaf
 ``<...>.segments.<i>.<layer>.<rest>`` is row ``layer`` of the reference
-leaf ``<...>/segments/<i>/<rest>``.
+leaf ``<...>/segments/<i>/<rest>`` (and likewise under the encoder's
+``enc_segments``).
 """
 from __future__ import annotations
 
@@ -46,13 +47,18 @@ def named_leaves(tree: Any, prefix: str = "") -> Iterator[
         raise TypeError(f"{prefix[:-1]}: not a tree node: {type(tree)}")
 
 
+#: the stacked lists of segments: the decoder's and the encoder's
+STACKED = ("segments", "enc_segments")
+
+
 def reference_path(name: str) -> tuple[str, int | None]:
     """A port leaf name -> (the reference's ``/``-joined path, the row of
     its stacked ``[L, ...]`` leaf, or None outside the segments)."""
     parts = name.split(".")
-    if "segments" not in parts:
+    at = next((i for i, p in enumerate(parts) if p in STACKED), None)
+    if at is None:
         return "/".join(parts), None
-    at = parts.index("segments") + 2
+    at += 2
     return "/".join(parts[:at] + parts[at + 1:]), int(parts[at])
 
 

@@ -481,6 +481,9 @@ FLASH_CASES = [  # b, h, hkv, t, s, d, causal, window
     (1, 4, 1, 77, 301, 120, True, 100),       # D = 120, S > T, window
     (2, 3, 3, 1, 33, 16, True, None),         # one query (decode shape)
     (1, 2, 2, 5, 5, 8, False, 2),             # a window without causal
+    (1, 16, 16, 600, 512, 64, False, None),   # T > S: cross-attention
+    (2, 4, 2, 97, 33, 32, False, None),       # T > S, ragged tiles
+    (1, 2, 1, 200, 2, 128, False, None),      # T > S, two keys
 ]
 
 
@@ -554,7 +557,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
               scale=0.125)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_cuda(*qkv(4, 4, 129), **kw)
-    with pytest.raises(ValueError, match="T <= S"):
+    with pytest.raises(ValueError, match="T > S is taken without a mask"):
         flash_attention_cuda(*qkv(5, 4, 16), **kw)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_cuda(*qkv(4, 4, 16, torch.float16), **kw)
@@ -1068,3 +1071,127 @@ def test_pallas_training_raises_on_card(cuda_device, arch):
     grew = [a - b for a, b in zip(after, before)]
     assert grew == ([cfg.n_layers, 0] if arch == "smollm-360m"
                     else [0, cfg.n_layers])
+
+
+# ------------------------------------------ the hybrid, MoE, enc-dec, VLM
+FAMILY_ARCHS = ["hymba-1.5b", "qwen3-moe-235b-a22b", "arctic-480b",
+                "seamless-m4t-medium", "internvl2-76b"]
+
+
+def _family_batch(cfg, b, t, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                                     dtype=torch.int32)}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.randn((b, 8, cfg.d_model),
+                                            generator=gen) * 0.1
+    if cfg.is_encdec:
+        batch["src_embeds"] = torch.randn((b, 20, cfg.d_model),
+                                          generator=gen) * 0.1
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_families_on_card_equal_cpu(cuda_device, no_tf32, arch):
+    """Reduced configs, float32, through "pallas" (flash in every
+    attention layer on the card, the plain version on the CPU): the
+    teacher-forced logits and aux, the loss, a prefill of 11 tokens and
+    three decode steps — the second committing row 0 only — on the card
+    equal the CPU's from the same parameters, within atol 1e-4 / rtol 1e-4
+    (two layers of float32 sums in another order); the states after them
+    (KV, SSM, enc_out) within 1e-5; flash launched once per attention
+    layer and forward."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced().replace(attn_impl="pallas")
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(
+        cfg, cuda_device)
+    cpu_params = cpu_model.init(0, device="cpu")
+    card_params = card_model.empty_params()
+    card_params.load_state_dict(cpu_params.state_dict())
+    layers = cfg.n_layers + cfg.enc_layers
+    out = {}
+    for name, model, params in (("cpu", cpu_model, cpu_params),
+                                ("card", card_model, card_params)):
+        batch = _family_batch(cfg, 2, 12, model.device)
+        n0 = flash_kernel.launches
+        with torch.no_grad():
+            lt, aux = model.apply_train(params, batch)
+            loss, _ = model.loss(params, {**batch,
+                                          "labels": batch["tokens"]})
+        pre = {**batch, "tokens": batch["tokens"][:, :11]}
+        st = model.init_states(2, 32)
+        lp, st = model.prefill(params, pre, st)
+        logits = [lt, lp]
+        tok = batch["tokens"][:, 11:]
+        for commit in (None, torch.tensor([True, False]), None):
+            ld, st = model.decode_step(
+                params, tok, st,
+                commit=None if commit is None else commit.to(model.device))
+            logits.append(ld)
+            tok = ld.argmax(-1, keepdim=True).to(torch.int32)
+        if name == "card":
+            assert flash_kernel.launches - n0 == 3 * layers
+        out[name] = ([x.cpu() for x in logits],
+                     {k: float(v) for k, v in aux.items()}, float(loss),
+                     bridge.lm_states_to_numpy(st))
+    (cl, caux, closs, cst), (gl, gaux, gloss, gst) = out["cpu"], out["card"]
+    for a, b in zip(gl, cl):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert gaux == pytest.approx(caux, rel=1e-5, abs=1e-6)
+    assert gloss == pytest.approx(closs, rel=1e-5)
+    for (pa, xa), (pb, xb) in zip(_walk(gst), _walk(cst)):
+        assert pa == pb
+        np.testing.assert_allclose(xa, xb, atol=1e-5, rtol=1e-5,
+                                   err_msg=pa)
+
+
+def test_hymba_engine_on_card_matches_sequential_through_flash(
+        cuda_device, no_tf32):
+    """Reduced hymba (window 64, 8 meta tokens) on the card: prompts of
+    5-90 tokens, some past the window, in chunks of 16; the engine's
+    tokens (its masked decode waves, the SSM state written only for the
+    wave's rows) equal sequential decoding whose one-shot prefill runs
+    through the flash kernel; the levels kernel once per iteration."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash as flash_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("hymba-1.5b").reduced().replace(n_layers=3,
+                                                     global_layers=(2,))
+    model = build_model(cfg, cuda_device)
+    params = model.init(0, device=cuda_device)
+    seq = build_model(cfg.replace(attn_impl="pallas"), cuda_device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype("int32")
+               for n in (5, 90, 70, 3)]
+    n0 = flash_kernel.launches
+    refs = []
+    for p in prompts:
+        st = seq.init_states(1, 128)
+        lg, st = seq.prefill(params, {"tokens": torch.tensor(
+            p, device=cuda_device)[None]}, st)
+        toks = [int(lg[0].argmax())]
+        for _ in range(5):
+            lg, st = seq.decode_step(params, torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device=cuda_device), st)
+            toks.append(int(lg[0].argmax()))
+        refs.append(toks)
+    assert flash_kernel.launches - n0 == cfg.n_layers * len(prompts)
+    levels_kernel.launches = 0
+    eng = ServingEngine(model, params, n_slots=3, max_len=128,
+                        prefill_chunk=16, device=cuda_device)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    assert [r.out_tokens for r in done] == refs
+    assert levels_kernel.launches == eng.iterations
+

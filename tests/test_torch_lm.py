@@ -212,12 +212,26 @@ def _cache_from(jc):
     return PA.KVCache(*(bridge._tensor(np.asarray(x), CPU) for x in jc))
 
 
+def _merged(new, old, commit):
+    """The reference engine's masked merge of two caches: ``new`` in the
+    ``commit`` rows."""
+    if commit is None:
+        return new
+    m = jnp.asarray(commit)
+    return JA.KVCache(*(jnp.where(m.reshape((-1,) + (1,) * (n.ndim - 1)),
+                                  n, o) for n, o in zip(new, old)))
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_attention_modes_and_ring_match_reference(arch):
     """train, one-shot prefill (danube's ring of 64 wraps under an
     80-token prompt), decode, a decode that commits one row only (the
-    reference's masked merge), and a chunk step, cache compared after
-    each."""
+    reference's masked merge; the idle row's output too), and a chunk
+    step, cache compared after each. The reference also runs on a ring of
+    4 more slots: its decode gives the same outputs there, and its chunk
+    step gives the port's output, which attends before it writes the
+    ring; in danube's ring of 64 the reference's own chunk step has
+    overwritten keys its first queries still see."""
     jm, jp, pm, pp = _pair(arch, attn_impl="chunked")
     cfg, pcfg = jm.cfg, pm.cfg
     ja, pa = _layer0(jp, pp)
@@ -235,10 +249,13 @@ def test_attention_modes_and_ring_match_reference(arch):
     np.testing.assert_allclose(po.numpy(), np.asarray(jo), **ACT)
 
     smax = min(96, window) if window else 96
-    jc = JA.init_kv_cache(b, cfg.n_kv_heads, smax, cfg.hd, jnp.float32)
+    jc, jw = (JA.init_kv_cache(b, cfg.n_kv_heads, n, cfg.hd, jnp.float32)
+              for n in (smax, smax + 4))
     pc = _cache_from(jc)
     jo, jc = JA.attention(ja, jnp.asarray(x), cfg, positions=jnp.asarray(pos),
                           window=window, cache=jc, mode="prefill")
+    _, jw = JA.attention(ja, jnp.asarray(x), cfg, positions=jnp.asarray(pos),
+                         window=window, cache=jw, mode="prefill")
     po = PA.attention(pa, torch.tensor(x), pcfg, positions=torch.tensor(pos),
                       window=window, cache=pc, mode="prefill")
     np.testing.assert_allclose(po.numpy(), np.asarray(jo), **ACT)
@@ -250,30 +267,27 @@ def test_attention_modes_and_ring_match_reference(arch):
         jo, jnew = JA.attention(ja, jnp.asarray(xd), cfg,
                                 positions=jnp.asarray(dpos), window=window,
                                 cache=jc, mode="decode")
-        if commit is not None:   # the serving engine's masked merge
-            m = jnp.asarray(commit)
-            jnew = JA.KVCache(*(jnp.where(m.reshape((-1,) + (1,) * (n.ndim
-                                                                    - 1)),
-                                          n, o)
-                                for n, o in zip(jnew, jc)))
-        jc = jnew
+        jwo, jwnew = JA.attention(ja, jnp.asarray(xd), cfg,
+                                  positions=jnp.asarray(dpos), window=window,
+                                  cache=jw, mode="decode")
+        np.testing.assert_allclose(np.asarray(jwo), np.asarray(jo), **ACT)
+        jc, jw = _merged(jnew, jc, commit), _merged(jwnew, jw, commit)
         po = PA.attention(pa, torch.tensor(xd), pcfg,
                           positions=torch.tensor(dpos), window=window,
                           cache=pc, mode="decode",
                           commit=None if commit is None
                           else torch.tensor(commit))
-        # the output of a row that does not commit is discarded (its new
-        # key is not in its ring): compare the committed rows
-        rows = slice(None) if commit is None else np.asarray(commit)
-        np.testing.assert_allclose(po.numpy()[rows], np.asarray(jo)[rows],
-                                   **ACT)
+        np.testing.assert_allclose(po.numpy(), np.asarray(jo), **ACT)
         _assert_cache(pc, jc)
 
     xc = rng.randn(b, 5, cfg.d_model).astype(np.float32)
     cpos = np.asarray(jc.length)[:, None] + np.arange(5, dtype=np.int32)
-    jo, jc = JA.attention(ja, jnp.asarray(xc), cfg,
-                          positions=jnp.asarray(cpos), window=window,
-                          cache=jc, mode="chunk")
+    _, jc = JA.attention(ja, jnp.asarray(xc), cfg,
+                         positions=jnp.asarray(cpos), window=window,
+                         cache=jc, mode="chunk")
+    jo, _ = JA.attention(ja, jnp.asarray(xc), cfg,
+                         positions=jnp.asarray(cpos), window=window,
+                         cache=jw, mode="chunk")
     po = PA.attention(pa, torch.tensor(xc), pcfg,
                       positions=torch.tensor(cpos), window=window, cache=pc,
                       mode="chunk")
@@ -328,14 +342,33 @@ def test_model_prefill_and_decode_match_reference(arch, impl):
                   want["segs"][0]["kv"])
 
 
+def _wide_rings(jm, batch, max_len, extra):
+    """The reference's empty states with ``extra`` more slots in every
+    sliding-window ring: rings that a chunk of up to ``extra + 1`` tokens
+    does not wrap onto keys its queries still see."""
+    st = jm.init_states(batch, max_len)
+    cfg = jm.cfg
+    if cfg.sliding_window is None or cfg.sliding_window >= max_len:
+        return st
+    n_layers = st["segs"][0]["kv"].k.shape[0]
+    one = JA.init_kv_cache(batch, cfg.n_kv_heads, cfg.sliding_window + extra,
+                           cfg.hd, st["segs"][0]["kv"].k.dtype)
+    st["segs"][0]["kv"] = jax.tree_util.tree_map(
+        lambda x: jnp.stack([x] * n_layers), one)
+    return st
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_model_chunked_prefill_matches_reference(arch):
     """The serving engine's continuation path: a prompt in chunks of 16
-    against the growing cache, then decode."""
+    against the growing cache, then decode. The reference runs on rings
+    of window + 15 slots: in danube's ring of 64 its chunk over positions
+    64-69 writes before it attends and loses keys 1-5, which the port's
+    chunk, attending before it writes, keeps."""
     jm, jp, pm, pp = _pair(arch)
     rng = np.random.RandomState(7)
     toks = rng.randint(0, jm.cfg.vocab, size=(1, 70)).astype(np.int32)
-    js, ps = jm.init_states(1, 96), pm.init_states(1, 96)
+    js, ps = _wide_rings(jm, 1, 96, 15), pm.init_states(1, 96)
     for c0 in range(0, 70, 16):
         chunk = toks[:, c0:c0 + 16]
         jl, js = jm.prefill(jp, {"tokens": jnp.asarray(chunk)}, js,
@@ -404,9 +437,25 @@ def test_param_tree_matches_reference_paths():
             {k: v.shape for k, v in names.items()}
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "arctic-480b",
-                                  "seamless-m4t-medium"])
-def test_other_families_raise(arch):
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, CPU).init(0, device=CPU)
+@pytest.mark.parametrize("knob", [dict(moe_impl="shard_map"),
+                                  dict(tp_shard_map=True),
+                                  dict(seq_parallel=True)],
+                         ids=["moe_impl", "tp_shard_map", "seq_parallel"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "smollm-360m"])
+def test_mesh_only_knobs_run_the_plain_path(arch, knob):
+    """The reference's mesh-only knobs: without a mesh it runs its plain
+    path under each (``moe_layer``, the plain attention block, no
+    sequence constraint), and so does the port, which has no mesh yet —
+    the logits of a 32-token batch equal the reference's (train, and a
+    prefill of 16 tokens)."""
+    jm, jp, pm, pp = _pair(arch, attn_impl="chunked", **knob)
+    toks = np.random.RandomState(9).randint(0, 512, size=(2, 32)).astype(
+        np.int32)
+    jl, _ = jax.jit(jm.apply_train)(jp, {"tokens": jnp.asarray(toks)})
+    pl_, _ = pm.apply_train(pp, {"tokens": torch.tensor(toks)})
+    np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **LOGITS)
+    jl, _ = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks[:, :16])},
+                                jm.init_states(2, 32))
+    pl_, _ = pm.prefill(pp, {"tokens": torch.tensor(toks[:, :16])},
+                        pm.init_states(2, 32))
+    np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **LOGITS)

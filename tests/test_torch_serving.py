@@ -203,6 +203,37 @@ def test_engine_matches_reference_engine(smollm, name):
         assert any(len(r.out_tokens) < r.max_new_tokens for r in pd)
 
 
+def test_windowed_engine_matches_reference_engine():
+    """A sliding-window model, reduced h2o-danube-3-4b (window 64): the
+    same tokens, waves, iterations and stats as the reference's engine,
+    with prompts below the window (chunks of 8 never wrap a ring onto
+    keys they still see) whose decoding runs past it (up to 60 + 12
+    tokens). Past the window in prefill the port's engine keeps keys the
+    reference's ring loses (``serving/engine.py``), so that case is held
+    against one-shot prefill (test_torch_hymba.py) instead."""
+    cfg = J_ARCHS["h2o-danube-3-4b"].reduced()
+    assert cfg.sliding_window == 64
+    jm = j_build(cfg)
+    jp = jm.init(jax.random.key(0))
+    pm = build_model(ARCHS["h2o-danube-3-4b"].reduced(), CPU)
+    pp = bridge.lm_params_from_numpy(
+        pm, jax.tree_util.tree_map(np.asarray, jp))
+    je = JEngine(jm, jp, n_slots=3, max_len=96, prefill_chunk=8)
+    pe = ServingEngine(pm, pp, n_slots=3, max_len=96, prefill_chunk=8,
+                       device=CPU)
+    assert pe.states["segs"][0]["kv"].k.shape \
+        == je.states["segs"][0]["kv"].k.shape
+    for i, p in enumerate(_prompts(8, (60, 9, 45, 3, 57))):
+        je.submit(JRequest(rid=i, prompt=p, max_new_tokens=12))
+        pe.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+    jd, pd = je.run(), pe.run()
+    assert [r.rid for r in pd] == [r.rid for r in jd]
+    assert [r.out_tokens for r in pd] == [r.out_tokens for r in jd]
+    assert pe.wave_sizes == je.wave_sizes
+    assert pe.iterations == je.iterations
+    assert pe.run_stats() == je.run_stats()
+
+
 def _by_thread(events):
     out = {}
     for e in events:
