@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--tasks N]
     python3 chip_smoke.py --time-overlap [--src DIR] [--tasks N]
     python3 chip_smoke.py --time-kernels [--src DIR]
+    python3 chip_smoke.py --lm-sharded
 
 Run from the root of a checkout. Phases, each of which exits non-zero on
 failure:
@@ -72,7 +73,7 @@ failure:
      others bit for bit as they were;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
-     on the card, W = 4096, 2^21 tasks each (``--tasks`` cuts the task
+     on the card, W = 4096, 2^20 tasks each (``--tasks`` cuts the task
      count of both paths, never n or W) — with the kernel launch
      counters set to 0 just before each model's run and read just
      after; each kernel must have launched once per window. Then, on
@@ -83,7 +84,7 @@ failure:
      levels and waves (host clock, each step fenced by a synchronize),
      and profiles 16 more (torch.profiler) for the device's busy share;
   6. drives the overlap path — ``run_engine(engine="wavefront_overlap")``
-     at W = 4096 and 2^21 tasks on four models built on the
+     at W = 4096 and 2^20 tasks on four models built on the
      card: voter and SIS on the graph above, Axelrod (n = 10^6, F = 3,
      q = 3, omega = 0.95, complete mixing) and SIRS (n = 10^6 on the ring
      of degree 14, subsets of 50). The counters are set to 0 before each
@@ -127,8 +128,9 @@ failure:
  11. the sharded engines (``torch.distributed``): (a) at world size 1
      under NCCL (a one-rank default group on a FileStore under build/),
      ``sharded`` and ``sharded_overlap`` on SIS (the graph above) and
-     SIRS (the phase-6 ring, s = 50) at n = 10^6, W = 4096 and 2^20 tasks
-     (``--tasks`` cuts it), each against ``wavefront`` /
+     SIRS (the phase-6 ring, s = 50) at n = 10^6, W = 4096 and 2^19 tasks
+     (2^20 before the lm sharded phase came; ``--tasks`` cuts it), each
+     against ``wavefront`` /
      ``wavefront_overlap`` on the card with the same seed and window:
      the final state bit for bit, the schedule stats equal, conflict and
      levels launched once per window, the block kernel once per
@@ -225,16 +227,15 @@ failure:
      parameters' check) — and the step at microbatches 2 against 1 on the
      card (loss within 1e-5, the reference test's bound; mu and the
      parameters as above); a NaN anywhere fails;
-     timed at bf16 (B 8, T 1024, remat): 3 warm-up and 10 timed steps,
+     timed at bf16 (B 8, T 1024, remat): 3 warm-up and 5 timed steps,
      tokens/s, ms per step, peak memory, host syncs inside ``step_fn``
      over one step (sync debug mode; any fails), the device's idle share
-     over 3 profiled steps (kernels only), a finite loss at every step;
-     its state (bf16
-     params, float32 moments, 3.6 GB) saved under build/, restored into
-     another state with every leaf's bits equal, ``train_loop`` resumed
-     from it for 2 steps, the files deleted; rwkv6-3b checked the same
+     over 3 profiled steps (kernels only), a finite loss at every step
+     (the checkpoint round trip and ``train_loop``'s resume are phase
+     16's elastic round trip);
+     rwkv6-3b checked the same
      way at full width with 2 layers (the host CPU's memory and time) and
-     timed at full width and depth (B 4, T 512, 2 warm-up and 5 timed
+     timed at full width and depth (B 4, T 512, 2 warm-up and 3 timed
      steps, 1 profiled), its peak memory printed;
  15. the families phase: hymba-1.5b at full width and depth (32
      layers, d_model 1600, 25 heads over 5, window 1024, global layers
@@ -260,7 +261,42 @@ failure:
      once per attention layer and forward; bf16 — one-shot prefill ms
      (B 8, T 512, patches or source frames as ``input_specs`` lays
      them out), ms per decode step over 8, MoE's overflow fraction;
- 16. times each kernel at W = 4096 on real windows (CUDA events, median
+ 16. the lm sharded phase (``drive_lm_sharded``): (a) world size 1 under
+     NCCL on a (1, 1) ("data", "model") DeviceMesh: smollm-360m at full
+     width and depth, float32 — one sharded train step (the state placed
+     by ``train_state_shardings``, ZeRO-1 moments) against the unsharded
+     step on the card under phase 14's bounds; the bf16 step on the
+     mesh timed at B 8, T 1024 and the elastic round trip of that state
+     (bf16 parameters, float32 moments, 3.6 GB: saved as logical arrays
+     under build/, ``train_loop`` resumed from it on a new (1, 1) mesh
+     with ``layout="dp"`` through ``state_shardings`` and ``put_batch``
+     — resumed from the saved step, every leaf's bits equal and on the
+     new mesh, two steps equal to two uninterrupted steps —, the files
+     deleted);
+     qwen3-moe at full width (6 layers, float32): ``moe_impl="shard_map"``
+     against the dense dispatch, loss and aux terms within 1e-5;
+     the sharded one-shot prefill (B 2, T 512) and 8 decode steps, the
+     states placed by ``states_shardings``, of smollm-360m (16 layers)
+     through flash and rwkv6-3b (32 layers) through wkv6, float32, against
+     the unsharded runs within 1e-4, each kernel launched at least once
+     per layer in the sharded run (counted); (b) four ``gloo`` ranks on
+     the card (DTensor's all-gather through host memory:
+     ``collectives.stage_gloo_all_gather``) at the reference tests'
+     widths on (2, 2): the sharded train step against one rank (4
+     steps, rtol 2e-4), rwkv6 ``layout="dp"`` against ``"tp"``, the
+     ``shard_map`` and ``shard_map_wg`` MoE in the train step against
+     dense (rtol 3e-3), the ``tp_shard_map`` block (deepseek; danube with
+     a window and one KV head) against the plain loss (1e-4),
+     ``crosspod_allreduce_compressed`` on (2, 1, 2), and the elastic
+     restore of the (2, 2) checkpoint of step 3 onto a (2, 1) mesh over
+     ranks 0 and 1, as the reference's test restores onto a sub-mesh
+     (step 4, rtol 2e-4), each against the unsharded runs the parent
+     makes meanwhile (the ranks run beside (a)'s untimed checks and (c);
+     (a)'s timed part runs after them, alone); (c) the dry run's 80 cells
+     on the meta device:
+     ok / skipped / failed and the largest per-rank argument bytes per
+     mesh;
+ 17. times each kernel at W = 4096 on real windows (CUDA events, median
      of 25) beside its plain version and its bound, the levels kernel
      with its passes, and on random windows of density 0.3; the summary
      line holds SIS's conflict and levels times (the widest footprint of
@@ -304,6 +340,9 @@ torch.profiler — device ms and kernels per wave, the wkv6 kernel's
 share — with the port package under ``--src``, so that the kernels of
 two trees can be compared in one call, each tree in its own process.
 
+``--lm-sharded`` runs only phases 1, 2 and 16 (the build, then the lm
+sharded phase), to iterate on that phase alone; it prints no result.
+
 ``--time-overlap`` runs none of the above: it prints the overlap path's
 wall ms per window for Axelrod (F = 3) and SIRS (s = 50) at n = 10^6,
 W = 4096, over ``--tasks`` tasks (default 2^20), with the port package
@@ -329,7 +368,7 @@ N_NODES = 1_000_000
 DEGREE = 10
 REWIRE = 0.1
 WINDOW = 4096
-TOTAL_TASKS = 1 << 21
+TOTAL_TASKS = 1 << 20
 CHECK_WINDOWS = 8
 SEED = 0
 DEVICE = "cuda"
@@ -1748,7 +1787,7 @@ def drive_big_window(torch, models):
 
 # ------------------------------------------------------- the sharded phase
 #: (a): tasks of each world-1 NCCL run; (b): windows of each four-rank run
-SHARDED_TASKS = 1 << 20
+SHARDED_TASKS = 1 << 19
 SHARDED_RANKS = 4
 SHARDED_RANK_WINDOWS = 8
 SHARDED_RANK_TIMEOUT_S = 400
@@ -3434,9 +3473,8 @@ MICRO_LOSS_RTOL = 1e-5
 #: the timed runs (bf16 weights, remat on): B, T, warm-up, timed and
 #: profiled steps (rwkv6-3b's step is ~61k kernels, and the profiler's
 #: bookkeeping of three of them took most of a minute)
-TRAIN_TIMED = {LM_ARCH: (8, 1024, 3, 10, 3), RWKV_ARCH: (4, 512, 2, 5, 1)}
+TRAIN_TIMED = {LM_ARCH: (8, 1024, 3, 5, 3), RWKV_ARCH: (4, 512, 2, 3, 1)}
 TRAIN_SYNC_STEPS = 1
-TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 
 
 def train_cfg(arch: str, dtype: str, **changes):
@@ -3511,6 +3549,57 @@ def train_refusal(torch) -> None:
         check_no_kernel(f"training refusal {arch}")
 
 
+def rel_err(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def worst(a: float, b: float) -> float:
+    """The larger of two errors; a NaN stays a NaN."""
+    return math.nan if math.isnan(a) or math.isnan(b) else max(a, b)
+
+
+def step_gaps(torch, got, want, before, lr, parts=("mu", "nu")) -> dict:
+    """How far the train state ``got`` lies from ``want``, both one float32
+    step from the parameters ``before`` (full tensors or DTensors, on any
+    device; compared on ``want``'s, ``before`` on ``got``'s): the
+    moments ``parts``, per leaf, over the leaf's largest |value| in
+    ``want``; the updates' largest gap; the share of updates more than
+    lr / 100 apart; how many of ``got``'s parameters are not finite. A
+    NaN in a gap stays a NaN."""
+    from repro_torch.distributed.spmd import full_tensor
+
+    moment, update, flips, n_el, bad = 0.0, 0.0, 0, 0, 0
+    want_params = dict(want.params.named_parameters())
+    for name, p in got.params.named_parameters():
+        w = full_tensor(want_params[name]).detach()
+        for part in parts:
+            y = full_tensor(getattr(want.opt, part)[name])
+            x = full_tensor(getattr(got.opt, part)[name]).to(y.device)
+            moment = worst(moment, float((x - y).abs().max())
+                           / float(y.abs().max().clamp(min=1e-30)))
+        p = full_tensor(p).detach()
+        gap = ((p - before[name]).to(w.device)
+               - (w - before[name].to(w.device))).abs()
+        update = worst(update, float(gap.max()))
+        flips += int((~(gap <= lr / 100)).sum())
+        n_el += p.numel()
+        bad += int((~torch.isfinite(p)).sum())
+    return {"moment_err_over_leaf_max": moment, "params_max_abs_err": update,
+            "update_share_over_lr_100": flips / n_el,
+            "params_not_finite": bad}
+
+
+def step_within_bounds(row: dict, lr: float) -> bool:
+    """The training phase's bounds on one float32 step against another
+    (``rel_err`` of loss and grad norm, ``step_gaps``); a NaN fails."""
+    return (row["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and row["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL
+            and row["moment_err_over_leaf_max"] <= TRAIN_MOMENT_TOL
+            and row["params_max_abs_err"] <= 2 * lr * (1 + 1e-3)
+            and row["update_share_over_lr_100"] <= TRAIN_FLIP_SHARE
+            and row["params_not_finite"] == 0)
+
+
 def train_checked(torch, arch, **changes) -> dict:
     """One float32 step (TF32 off) of ``arch`` at full width on the card
     and the same step on the host's CPU from the same parameters (drawn on
@@ -3555,70 +3644,30 @@ def train_checked(torch, arch, **changes) -> dict:
         cpu, train_batches(torch, cfg.vocab, b, t, 1, device="cpu")[0])
     cpu_s = time.perf_counter() - t0
 
-    def rel(a, c):
-        return abs(float(a) - float(c)) / max(abs(float(c)), 1e-30)
-
-    def worst(a, b):                     # a NaN stays a NaN
-        return math.nan if math.isnan(a) or math.isnan(b) else max(a, b)
-
-    def flipped(a, b):                   # updates more than lr / 100 apart
-        return int((~((a - b).abs() <= TRAIN_CHECK_LR / 100)).sum())
-
-    loss_err = rel(m_card["loss"], m_cpu["loss"])
-    gnorm_err = rel(m_card["grad_norm"], m_cpu["grad_norm"])
-    moment_err = 0.0                     # per leaf, over its largest |x|
-    update_err, flips, micro_flips, n_el = 0.0, 0, 0, 0
-    not_finite, micro_not_finite = 0, 0
-    micro_moment = 0.0
-    card_params = dict(card.params.named_parameters())
-    mb2_params = dict(card_mb2.params.named_parameters())
-    for name, p_cpu in cpu.params.named_parameters():
-        for part in ("mu", "nu"):
-            c = getattr(cpu.opt, part)[name]
-            scale = float(c.abs().max().clamp(min=1e-30))
-            moment_err = worst(moment_err, float(
-                (getattr(card.opt, part)[name].cpu() - c).abs().max())
-                / scale)
-            if part == "mu":
-                micro_moment = worst(micro_moment, float(
-                    (card_mb2.opt.mu[name] - card.opt.mu[name]).abs().max()
-                    .cpu()) / scale)
-        p_card = card_params[name].detach()
-        up_card = p_card.cpu() - before[name]
-        up_cpu = p_cpu.detach() - before[name]
-        update_err = worst(update_err,
-                           float((up_card - up_cpu).abs().max()))
-        flips += flipped(up_card, up_cpu)
-        micro_flips += flipped(mb2_params[name].detach(), p_card)
-        n_el += p_card.numel()
-        not_finite += int((~torch.isfinite(p_card)).sum())
-        micro_not_finite += int((~torch.isfinite(mb2_params[name])).sum())
+    before = {k: v.to(DEVICE) for k, v in before.items()}
+    card_gaps = step_gaps(torch, card, cpu, before, TRAIN_CHECK_LR)
+    micro = step_gaps(torch, card_mb2, card, before, TRAIN_CHECK_LR,
+                      parts=("mu",))
     row = {"arch": arch, "params": "float32", "layers": cfg.n_layers,
            "batch": [b, t], "lr": TRAIN_CHECK_LR,
            "loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
            "grad_norm_card": float(m_card["grad_norm"]),
            "grad_norm_cpu": float(m_cpu["grad_norm"]),
-           "loss_rel_err": loss_err, "grad_norm_rel_err": gnorm_err,
-           "moment_err_over_leaf_max": moment_err,
-           "params_max_abs_err": update_err,
-           "update_share_over_lr_100": flips / n_el,
-           "params_not_finite": not_finite,
-           "microbatch2_loss_rel_err": rel(m_mb2["loss"], m_card["loss"]),
-           "microbatch2_update_share_over_lr_100": micro_flips / n_el,
-           "microbatch2_params_not_finite": micro_not_finite,
-           "microbatch2_mu_err_over_leaf_max": micro_moment,
+           "loss_rel_err": rel_err(m_card["loss"], m_cpu["loss"]),
+           "grad_norm_rel_err": rel_err(m_card["grad_norm"],
+                                        m_cpu["grad_norm"]),
+           **card_gaps,
+           "microbatch2_loss_rel_err": rel_err(m_mb2["loss"], m_card["loss"]),
+           **{"microbatch2_" + k: v for k, v in micro.items()},
            "card_step_s": card_s, "cpu_step_s": cpu_s, "setup_s": setup_s}
     log(f"training checked {arch}: " + json.dumps(row))
-    if not (loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GNORM_RTOL
-            and moment_err <= TRAIN_MOMENT_TOL
-            and update_err <= 2 * TRAIN_CHECK_LR * (1 + 1e-3)
-            and flips / n_el <= TRAIN_FLIP_SHARE and not_finite == 0):
+    if not step_within_bounds(row, TRAIN_CHECK_LR):
         fail(f"training {arch}: the card's float32 step differs from the "
              f"CPU's beyond the stated tolerances: {row}")
     if not (row["microbatch2_loss_rel_err"] <= MICRO_LOSS_RTOL
-            and micro_moment <= TRAIN_MOMENT_TOL
-            and micro_flips / n_el <= TRAIN_FLIP_SHARE
-            and micro_not_finite == 0):
+            and micro["moment_err_over_leaf_max"] <= TRAIN_MOMENT_TOL
+            and micro["update_share_over_lr_100"] <= TRAIN_FLIP_SHARE
+            and micro["params_not_finite"] == 0):
         fail(f"training {arch}: microbatches=2 differs from 1: {row}")
     del cpu, card, card_mb2, before
     torch.cuda.empty_cache()
@@ -3630,8 +3679,7 @@ def train_timed(torch, arch):
     per step over the timed steps, peak device memory, host syncs inside
     ``step_fn`` (sync debug mode; must be 0), the device's idle share
     over the profiled steps (kernels only) against the timed steps' ms,
-    and a finite loss at every step. Returns (model, state, step_fn) for
-    the checkpoint round trip."""
+    and a finite loss at every step."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -3719,82 +3767,19 @@ def train_timed(torch, arch):
              f"over {TRAIN_SYNC_STEPS} steps, e.g. {syncs[:3]}")
     if not finite:
         fail(f"training {arch}: a loss is not finite: {row['losses']}")
-    return model, state, step_fn
-
-
-def train_checkpoint(torch, model, state, step_fn) -> None:
-    """Save the timed state (bf16 params, float32 moments) under build/,
-    restore it into a fresh state and compare every leaf's bits, resume
-    ``train_loop`` from it at the right step, then delete the files."""
-    import shutil
-
-    from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.data import DataConfig, SyntheticLMStream
-    from repro_torch.train.loop import LoopConfig, train_loop
-    from repro_torch.train.step import init_train_state
-    from repro_torch.utils.pytree import named_leaves
-
-    def bits(x):
-        return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
-
-    b, t = TRAIN_TIMED[LM_ARCH][:2]
-    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
-    try:
-        mgr = CheckpointManager(str(TRAIN_CKPT_DIR))
-        step = int(state.step)
-        t0 = time.perf_counter()
-        mgr.save(step, state, blocking=True)
-        save_s = time.perf_counter() - t0
-        nbytes = sum(f.stat().st_size
-                     for f in TRAIN_CKPT_DIR.rglob("*") if f.is_file())
-        fresh = init_train_state(model, SEED + 1, device=DEVICE)
-        t0 = time.perf_counter()
-        restored, got = mgr.restore(fresh)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        want = dict(named_leaves(state))
-        n_leaves = 0
-        for name, x in named_leaves(restored):
-            if (got != step or x.dtype != want[name].dtype
-                    or not torch.equal(bits(x), bits(want[name]))):
-                fail(f"checkpoint round trip: {name} differs (step {got})")
-            n_leaves += 1
-        del fresh, restored, want
-        resumed = init_train_state(model, SEED + 2, device=DEVICE)
-        stream = SyntheticLMStream(DataConfig(
-            vocab=model.cfg.vocab, seq_len=t, global_batch=b, seed=SEED))
-        t0 = time.perf_counter()
-        resumed, rep = train_loop(step_fn, resumed, stream, LoopConfig(
-            total_steps=step + 2, ckpt_every=10 ** 9,
-            ckpt_dir=str(TRAIN_CKPT_DIR)))
-        loop_s = time.perf_counter() - t0
-        if (rep.resumed_from != step or rep.steps_run != 2
-                or int(resumed.step) != step + 2
-                or not math.isfinite(rep.final_metrics["loss"])):
-            fail(f"resume: from {rep.resumed_from} ran {rep.steps_run} "
-                 f"steps to {int(resumed.step)} (saved at {step}), loss "
-                 f"{rep.final_metrics}")
-        log("training checkpoint " + LM_ARCH + ": " + json.dumps(
-            {"step": step, "leaves": n_leaves, "bytes": nbytes,
-             "save_s": save_s, "restore_s": restore_s,
-             "resumed_from": rep.resumed_from, "steps_run": rep.steps_run,
-             "loop_s": loop_s, "final_loss": rep.final_metrics["loss"]}))
-    finally:
-        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
 
 
 def drive_training(torch) -> None:
-    """The training phase: the refusal, smollm-360m checked at float32,
-    timed at bf16 and its checkpoint round trip, then rwkv6-3b checked at
-    float32 (RWKV_CHECK_LAYERS layers) and timed at bf16."""
+    """The training phase: the refusal, smollm-360m checked at float32 and
+    timed at bf16, then rwkv6-3b checked at float32 (RWKV_CHECK_LAYERS
+    layers) and timed at bf16. (The checkpoint round trip is the lm
+    sharded phase's elastic round trip.)"""
     t0 = time.perf_counter()
     train_refusal(torch)
     train_checked(torch, LM_ARCH)
     log(f"training checked {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    model, state, step_fn = train_timed(torch, LM_ARCH)
-    train_checkpoint(torch, model, state, step_fn)
-    del model, state, step_fn
+    train_timed(torch, LM_ARCH)
     torch.cuda.empty_cache()
     log(f"training timed {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4195,11 +4180,716 @@ def drive_families(torch) -> dict:
     return launches
 
 
+# ------------------------------------------------------ the lm sharded phase
+#: the phase's gloo ranks (reduced widths, the reference tests'
+#: configurations) and their deadline
+LM_SHARDED_RANKS = 4
+LM_SHARDED_TIMEOUT_S = 300
+#: world size 1: the sharded prefill's depth per arch (smollm at the
+#: serving cut), its B x T, and the sharded decode steps after it
+LM_SHARDED_PREFILL = {LM_ARCH: LM_SERVING_LAYERS[LM_ARCH], RWKV_ARCH: 32}
+LM_SHARDED_PROMPT = (2, 512)
+LM_SHARDED_DECODE = 8
+#: sharded against unsharded at world size 1, float32: the same local
+#: operations on the same shapes (a (1, 1) mesh shards nothing), so the
+#: logits agree to float32 rounding; the bound leaves room for a reduction
+#: order that differs
+LM_SHARDED_LOGIT_TOL = 1e-4
+#: the MoE at world size 1 (qwen3-moe, the families' float32 depth cut): the
+#: capacity is the whole batch's and no sum crosses a rank, so the
+#: expert-parallel layer computes the dense dispatch's operations:
+#: loss and aux terms within float32 rounding
+LM_SHARDED_MOE_RTOL = 1e-5
+#: the bf16 step timed on the (1, 1) mesh: the training phase's timed shape
+LM_SHARDED_TIMED = (8, 1024, 1, 3)
+LM_SHARDED_CKPT_DIR = ROOT / "build" / "lm_sharded_ckpt"
+#: steps ``train_loop`` takes after the elastic restore
+LM_SHARDED_RESUMED = 2
+#: the four ranks' contracts (the reference tests' bounds)
+LM_STEP_RTOL = 2e-4
+LM_MOE_STEP_RTOL = 3e-3
+LM_BLOCK_ATOL = 1e-4
+#: (arch, changes to .reduced()) of the reference tests' configurations
+LM_RANK_CONFIGS = {
+    "smollm": ("smollm-360m", dict(d_model=64, n_heads=4, n_kv_heads=2,
+                                   d_ff=128, vocab=256, n_layers=2,
+                                   param_dtype="float32")),
+    "rwkv": ("rwkv6-3b", dict(d_model=64, n_layers=2, vocab=256, d_ff=128,
+                              param_dtype="float32", head_dim=32,
+                              n_heads=2, n_kv_heads=2)),
+    "moe": ("qwen3-moe-235b-a22b", dict(param_dtype="float32")),
+    "deepseek": ("deepseek-7b", dict(param_dtype="float32", n_heads=4,
+                                     n_kv_heads=4)),
+    "danube": ("h2o-danube-3-4b", dict(param_dtype="float32", n_heads=4,
+                                       n_kv_heads=1, sliding_window=16)),
+}
+
+
+def lm_rank_cfg(key, **extra):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch, changes = LM_RANK_CONFIGS[key]
+    cfg = get_config(arch).reduced().replace(attn_impl="chunked", **changes)
+    if key == "moe":
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=2, d_expert=64, capacity_factor=8.0))
+    return cfg.replace(**extra)
+
+
+def placed_batch(batch, mesh, layout="tp"):
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.train.step import train_batch_shardings
+
+    sh = train_batch_shardings(batch, mesh, layout=layout)
+    return {k: distribute(v, sh[k]) for k, v in batch.items()}
+
+
+def lm_train_losses(torch, key, mesh, steps, batch_size, save=None,
+                    **extra):
+    """Losses of ``steps`` train steps of the reduced config ``key`` from
+    seed SEED, on ``mesh`` (None: unsharded), batches of the synthetic
+    stream (B ``batch_size``, T 32)."""
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+        place_train_state,
+        train_state_shardings,
+    )
+
+    cfg = lm_rank_cfg(key, **extra)
+    model = build_model(cfg, DEVICE)
+    state = init_train_state(model, SEED, device=DEVICE)
+    if mesh is not None:
+        state = place_train_state(state, train_state_shardings(state, cfg,
+                                                               mesh))
+    step = make_train_step(model, TrainHParams(total_steps=10))
+    losses = []
+    with mesh_context(mesh):
+        for b in train_batches(torch, cfg.vocab, batch_size, 32, steps):
+            if mesh is not None:
+                b = placed_batch(b, mesh, cfg.layout)
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+    if save:
+        CheckpointManager(save).save(steps, state, blocking=True)
+    return losses
+
+
+def lm_block_loss(torch, key, mesh=None):
+    """The reduced config ``key``'s loss on one batch from seed SEED:
+    plain (no mesh), or with ``tp_shard_map`` on ``mesh`` (then also
+    whether its gradients are finite, and the collectives issued)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.sharding import (
+        params_shardings,
+        place_module,
+    )
+    from repro_torch.distributed.spmd import full_tensor
+    from repro_torch.models import build_model
+
+    cfg = lm_rank_cfg(key)
+    params = build_model(cfg, DEVICE).init(SEED, device=DEVICE)
+    batch = train_batches(torch, cfg.vocab, 2, 32, 1)[0]
+    if mesh is None:
+        return float(build_model(cfg, DEVICE).loss(params, batch)[0])
+    params.requires_grad_(True)
+    place_module(params, params_shardings(params, cfg, mesh))
+    collectives.LEDGER.reset()
+    with mesh_context(mesh):
+        loss, _ = build_model(cfg.replace(tp_shard_map=True), DEVICE).loss(
+            params, placed_batch(batch, mesh))
+        loss = full_tensor(loss)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+    return {"tp_shard_map": float(loss),
+            "grads_finite": all(bool(torch.isfinite(full_tensor(g)).all())
+                                for g in grads),
+            "ledger": dict(collectives.LEDGER.count)}
+
+
+def lm_one_rank_runs(torch) -> dict:
+    """The unsharded runs the four ranks are held against (the parent
+    makes them while the ranks start)."""
+    return {"smollm": lm_train_losses(torch, "smollm", None, 4, 4),
+            "rwkv": lm_train_losses(torch, "rwkv", None, 3, 8),
+            "moe": lm_train_losses(torch, "moe", None, 3, 8),
+            **{k: lm_block_loss(torch, k) for k in ("deepseek", "danube")}}
+
+
+def _lm_rank_checks(torch, rank, out_dir):
+    """One rank's sharded runs on (2, 2): the train step (3 steps, then
+    saved), its elastic restore onto a (2, 1) mesh over ranks 0 and 1 (the
+    reference's test restores onto a sub-mesh of its devices) and a fourth
+    step there, rwkv6 in both layouts, the expert-parallel MoE in the
+    train step, the tp_shard_map block, and the int8 cross-pod reduction
+    on (2, 1, 2)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.compress import (
+        compress_grads,
+        crosspod_allreduce_compressed,
+        ef_init,
+    )
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.elastic import (
+        make_mesh_from_devices,
+        rescale,
+    )
+    from repro_torch.distributed.spmd import full_tensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+    )
+
+    mesh = make_host_mesh((2, 2), device_type=DEVICE)
+    res = {"smollm": lm_train_losses(torch, "smollm", mesh, 3, 4,
+                                     save=str(out_dir / "ckpt"))}
+    mesh2 = make_mesh_from_devices([0, 1], (2, 1), ("data", "model"),
+                                   device_type=DEVICE)
+    if mesh2.get_coordinate() is not None:
+        cfg = lm_rank_cfg("smollm")
+        model = build_model(cfg, DEVICE)
+        state, _, at = rescale(CheckpointManager(str(out_dir / "ckpt")),
+                               init_train_state(model, SEED + 1,
+                                                device=DEVICE), cfg, mesh2)
+        batch = train_batches(torch, cfg.vocab, 4, 32, 4)[3]
+        with mesh_context(mesh2):
+            state, m = make_train_step(model, TrainHParams(total_steps=10))(
+                state, placed_batch(batch, mesh2))
+        res["restore"] = {"at": at, "step": int(full_tensor(state.step)),
+                          "loss": float(m["loss"])}
+        del state
+    dist.barrier()
+    res["rwkv"] = {layout: lm_train_losses(torch, "rwkv", mesh, 3, 8,
+                                           layout=layout)
+                   for layout in ("tp", "dp")}
+    collectives.LEDGER.reset()
+    res["moe"] = {impl: lm_train_losses(torch, "moe", mesh, 3, 8,
+                                        moe_impl=impl)
+                  for impl in ("shard_map", "shard_map_wg")}
+    res["moe"]["ledger"] = dict(collectives.LEDGER.count)
+    for key in ("deepseek", "danube"):
+        res[key] = lm_block_loss(torch, key, mesh)
+    pmesh = make_host_mesh((2, 1, 2), ("pod", "data", "model"),
+                           device_type=DEVICE)
+
+    def grads_of(r):
+        gen = torch.Generator(device=DEVICE).manual_seed(100 + r)
+        return {"a": torch.randn(600, 50, generator=gen, device=DEVICE),
+                "b": torch.randn(7, generator=gen, device=DEVICE)}
+
+    mine = grads_of(rank)
+    reduced, _ = crosspod_allreduce_compressed(mine, ef_init(mine),
+                                               mesh=pmesh)
+    comp = [compress_grads(grads_of(r), ef_init(mine))[0]
+            for r in range(LM_SHARDED_RANKS) if r % 2 == rank % 2]
+    res["crosspod_err"] = max(float(
+        (reduced[k] - sum(c[k] for c in comp) / len(comp)).abs().max())
+        for k in mine)
+    res["staged"] = dict(collectives.LEDGER.staged)
+    return res
+
+
+def lm_sharded_rank(rank, store, out_dir, device):
+    """One of LM_SHARDED_RANKS gloo ranks on the one card (spawned by
+    ``start_lm_ranks``; ``device``: the parent's DEVICE). Writes
+    ``lm_rank<r>.json``, or ``lm_rank<r>.err`` and exits 1."""
+    global DEVICE
+    DEVICE = device
+    out_dir = Path(out_dir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.distributed.collectives import stage_gloo_all_gather
+
+        if DEVICE == "cuda":
+            torch.cuda.set_device(0)
+            stage_gloo_all_gather()
+        torch.set_num_threads(1)  # four ranks share the host's cores
+        no_tf32(torch)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, LM_SHARDED_RANKS), rank=rank,
+            world_size=LM_SHARDED_RANKS)
+        try:
+            res = _lm_rank_checks(torch, rank, out_dir)
+        finally:
+            dist.destroy_process_group()
+        (out_dir / f"lm_rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        import traceback
+
+        (out_dir / f"lm_rank{rank}.err").write_text(traceback.format_exc())
+        sys.exit(1)
+
+
+def start_lm_ranks():
+    """Spawn the LM_SHARDED_RANKS gloo ranks on the card; returns what
+    ``check_lm_ranks`` joins."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    out_dir = ROOT / "build" / "lm_sharded_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=lm_sharded_rank,
+                         args=(r, str(out_dir / "store"), str(out_dir),
+                               DEVICE))
+             for r in range(LM_SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    return procs, out_dir, t0
+
+
+def check_lm_ranks(procs, out_dir, t0, one) -> None:
+    """Join the ranks and hold rank 0's results against ``one``, the
+    unsharded runs (``lm_one_rank_runs``); each contract checked."""
+    try:
+        for r, p in enumerate(procs):
+            p.join(max(LM_SHARDED_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if p.is_alive():
+                fail(f"lm sharded rank {r} did not finish in "
+                     f"{LM_SHARDED_TIMEOUT_S} s")
+            if p.exitcode != 0:
+                err = out_dir / f"lm_rank{r}.err"
+                fail(f"lm sharded rank {r} exited {p.exitcode}: "
+                     + (err.read_text() if err.exists() else ""))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    res = json.loads((out_dir / "lm_rank0.json").read_text())
+    log("lm sharded four ranks gloo: " + json.dumps(
+        {"one_rank": one, **res, "seconds": time.perf_counter() - t0}))
+
+    def close(a, b, rtol):
+        return len(a) == len(b) and all(abs(x - y) <= rtol * abs(y)
+                                        for x, y in zip(a, b))
+
+    if not close(res["smollm"], one["smollm"][:3], LM_STEP_RTOL):
+        fail(f"lm sharded: the (2, 2) step differs from one rank: {res}")
+    rst = res["restore"]
+    if not (rst["at"] == 3 and rst["step"] == 4
+            and close([rst["loss"]], one["smollm"][3:], LM_STEP_RTOL)):
+        fail(f"lm sharded: the elastic restore onto (2, 1): {rst}")
+    rw = res["rwkv"]
+    if not (close(rw["tp"], one["rwkv"], LM_STEP_RTOL)
+            and close(rw["dp"], rw["tp"], LM_STEP_RTOL)):
+        fail(f"lm sharded: rwkv6 dp != tp: {rw}")
+    moe = res["moe"]
+    for impl in ("shard_map", "shard_map_wg"):
+        if not close(moe[impl], one["moe"], LM_MOE_STEP_RTOL):
+            fail(f"lm sharded: MoE {impl} != dense: {moe}")
+    if not moe["ledger"].get("all-to-all"):
+        fail("lm sharded: the expert-parallel MoE issued no all-to-all")
+    for key in ("deepseek", "danube"):
+        r = res[key]
+        if not (abs(r["tp_shard_map"] - one[key]) < LM_BLOCK_ATOL
+                and r["grads_finite"] and r["ledger"].get("reduce-scatter")):
+            fail(f"lm sharded: the tp_shard_map block on {key}: {r}")
+    if res["crosspod_err"] > 1e-6:
+        fail(f"lm sharded: crosspod_allreduce_compressed: {res}")
+
+
+def lm_sharded_train(torch, mesh) -> None:
+    """smollm-360m at full width and depth, world size 1: one float32
+    sharded step against the unsharded step on the card (B x T =
+    TRAIN_CHECK_BATCH) under the training phase's bounds; then the bf16
+    step timed on the mesh at the training phase's timed shape, and the
+    elastic round trip of that bf16 state (``lm_sharded_elastic``)."""
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.models import build_model
+    from repro_torch.train.step import (
+        TrainHParams,
+        init_train_state,
+        make_train_step,
+        place_train_state,
+        train_state_shardings,
+    )
+
+    no_tf32(torch)
+    cfg = train_cfg(LM_ARCH, "float32")
+    model = build_model(cfg, DEVICE)
+    hp = TrainHParams(peak_lr=TRAIN_CHECK_LR, warmup_steps=0,
+                      total_steps=100)
+    step_fn = make_train_step(model, hp)
+    b, t = TRAIN_CHECK_BATCH
+    batch = train_batches(torch, cfg.vocab, b, t, 1)[0]
+    plain = init_train_state(model, SEED, device=DEVICE)
+    sharded = copy.deepcopy(plain)
+    before = {k: p.detach().clone()
+              for k, p in plain.params.named_parameters()}
+    sharded = place_train_state(sharded, train_state_shardings(
+        sharded, cfg, mesh))
+    with mesh_context(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded, m_sh = step_fn(sharded, placed_batch(batch, mesh))
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    plain, m_plain = step_fn(plain, batch)
+    row = {"loss_sharded": float(m_sh["loss"]),
+           "loss_plain": float(m_plain["loss"]),
+           "loss_rel_err": rel_err(m_sh["loss"], m_plain["loss"]),
+           "grad_norm_rel_err": rel_err(m_sh["grad_norm"],
+                                        m_plain["grad_norm"]),
+           **step_gaps(torch, sharded, plain, before, TRAIN_CHECK_LR),
+           "layers": cfg.n_layers, "batch": [b, t],
+           "sharded_step_s": sharded_s}
+    log(f"lm sharded train {LM_ARCH} float32 (1, 1): " + json.dumps(row))
+    if not step_within_bounds(row, TRAIN_CHECK_LR):
+        fail(f"lm sharded: the sharded step differs from the unsharded "
+             f"one beyond the training phase's bounds: {row}")
+    del plain, sharded, before
+    torch.cuda.empty_cache()
+
+    # the bf16 step on the mesh, timed at the training phase's shape
+    b, t, warmup, steps = LM_SHARDED_TIMED
+    cfg = train_cfg(LM_ARCH, "bfloat16")
+    model = build_model(cfg, DEVICE)
+    state = init_train_state(model, SEED, device=DEVICE)
+    state = place_train_state(state, train_state_shardings(state, cfg, mesh))
+    step_fn = make_train_step(model, TrainHParams(warmup_steps=2,
+                                                  total_steps=100))
+    batches = [placed_batch(x, mesh) for x in train_batches(
+        torch, cfg.vocab, b, t, warmup + steps)]
+    losses = []
+    with mesh_context(mesh):
+        for i, bt in enumerate(batches):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step_fn(state, bt)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    row = {"arch": LM_ARCH, "params": "bfloat16", "mesh": [1, 1],
+           "batch": [b, t], "timed_steps": steps,
+           "ms_per_step": secs / steps * 1e3,
+           "tokens_per_s": steps * b * t / secs,
+           "losses": [float(x) for x in losses]}
+    log("lm sharded train timed: " + json.dumps(row))
+    if not all(math.isfinite(x) for x in row["losses"]):
+        fail(f"lm sharded: a timed loss is not finite: {row}")
+    del batches
+    lm_sharded_elastic(torch, model, cfg, state, step_fn, mesh)
+    del state
+    torch.cuda.empty_cache()
+
+
+def lm_sharded_elastic(torch, model, cfg, state, step_fn, mesh) -> None:
+    """The elastic round trip of the timed bf16 state on ``mesh`` (bf16
+    parameters, float32 moments, 3.6 GB): saved as logical arrays under
+    build/ (the bf16 leaves as ``|V2`` records), then ``train_loop``
+    resumed from it on a new (1, 1) mesh with ``layout="dp"`` — the
+    restore placed by ``state_shardings`` (``train_state_shardings`` for
+    that mesh, as ``rescale`` computes them), the batches by
+    ``put_batch`` — for LM_SHARDED_RESUMED steps of the synthetic stream
+    at B x T = TRAIN_CHECK_BATCH. It must resume from the saved step and
+    run those steps; when its first step begins every leaf must hold the
+    saved bits, on the new mesh; its losses must equal those of the
+    uninterrupted state on the same batches. The files are deleted."""
+    import shutil
+
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.elastic import make_mesh_from_devices
+    from repro_torch.distributed.spmd import full_tensor, is_dtensor, local
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig, SyntheticLMStream
+    from repro_torch.train.loop import LoopConfig, batch_to_device, train_loop
+    from repro_torch.train.step import init_train_state, train_state_shardings
+    from repro_torch.utils.pytree import named_leaves
+
+    def bits(x):
+        x = full_tensor(x)
+        return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+
+    saved = int(local(state.step))
+    n = LM_SHARDED_RESUMED
+    b, t = TRAIN_CHECK_BATCH
+    stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=t,
+                                          global_batch=b, seed=SEED))
+    mesh2 = make_mesh_from_devices([0], (1, 1), ("data", "model"),
+                                   device_type=DEVICE)
+    want = dict(named_leaves(state))
+    seen = {"leaves": 0, "bf16_leaves": 0, "losses": []}
+
+    def resumed_step(st, batch):
+        if not seen["losses"]:          # the restored state, unstepped
+            for name, x in named_leaves(st):
+                w = want[name]
+                if not (x.dtype == w.dtype and is_dtensor(x)
+                        and tuple(x.placements)
+                        == placements[name].placements(x.ndim)
+                        and torch.equal(bits(x), bits(w))):
+                    fail(f"lm sharded: elastic restore: {name} differs "
+                         f"from the saved state or is not placed by the "
+                         f"new mesh's shardings")
+                seen["leaves"] += 1
+                seen["bf16_leaves"] += x.dtype == torch.bfloat16
+        st, m = step_fn(st, batch)
+        seen["losses"].append(float(m["loss"]))
+        return st, m
+
+    shutil.rmtree(LM_SHARDED_CKPT_DIR, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(LM_SHARDED_CKPT_DIR))
+        t0 = time.perf_counter()
+        mgr.save(saved, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in LM_SHARDED_CKPT_DIR.rglob("*")
+                     if f.is_file())
+        like = init_train_state(model, SEED + 1, device=DEVICE)
+        shardings = train_state_shardings(like, cfg.replace(layout="dp"),
+                                          mesh2)
+        placements = {"opt.count": shardings.opt.count,
+                      "step": shardings.step}
+        for group, tree in (("params", shardings.params),
+                            ("opt.mu", shardings.opt.mu),
+                            ("opt.nu", shardings.opt.nu)):
+            placements.update({f"{group}.{k}": v for k, v in tree.items()})
+        t0 = time.perf_counter()
+        with mesh_context(mesh2):
+            resumed, rep = train_loop(
+                resumed_step, like, stream,
+                LoopConfig(total_steps=saved + n, ckpt_every=10 ** 9,
+                           ckpt_dir=str(LM_SHARDED_CKPT_DIR)),
+                state_shardings=shardings,
+                put_batch=lambda bt: placed_batch(bt, mesh2, "dp"))
+        loop_s = time.perf_counter() - t0
+        del like, resumed_step
+        uninterrupted = []
+        with mesh_context(mesh):
+            for s in range(saved, saved + n):
+                bt = batch_to_device(stream.batch_at(s), torch.device(DEVICE))
+                state, m = step_fn(state, placed_batch(bt, mesh))
+                uninterrupted.append(float(m["loss"]))
+        row = {"saved_step": saved, "leaves": seen["leaves"],
+               "bf16_leaves": seen["bf16_leaves"], "bytes": nbytes,
+               "save_s": save_s, "loop_s": loop_s,
+               "resumed_from": rep.resumed_from, "steps_run": rep.steps_run,
+               "step_after": int(local(resumed.step)),
+               "resumed_dp": seen["losses"], "uninterrupted": uninterrupted}
+        log(f"lm sharded elastic {LM_ARCH} bf16: " + json.dumps(row))
+        if not (rep.resumed_from == saved and rep.steps_run == n
+                and row["step_after"] == saved + n
+                and seen["leaves"] == len(want) and seen["bf16_leaves"]
+                and len(seen["losses"]) == len(uninterrupted) == n
+                and all(abs(x - y) <= TRAIN_LOSS_RTOL * abs(y)
+                        for x, y in zip(seen["losses"], uninterrupted))):
+            fail(f"lm sharded: the elastic round trip: {row}")
+    finally:
+        shutil.rmtree(LM_SHARDED_CKPT_DIR, ignore_errors=True)
+
+
+def lm_sharded_moe(torch, mesh) -> None:
+    """qwen3-moe-235b-a22b at full width, the families' float32 depth cut:
+    the loss and the three aux terms of ``moe_impl="shard_map"`` against
+    the dense dispatch, on the same placed parameters and batch."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.sharding import (
+        params_shardings,
+        place_module,
+    )
+    from repro_torch.distributed.spmd import full_tensor
+    from repro_torch.models import build_model
+
+    no_tf32(torch)
+    arch = "qwen3-moe-235b-a22b"
+    cfg = family_cfg(arch, "float32", attn_impl="chunked",
+                     n_layers=FAMILY_LAYERS[arch][0])
+    dense = build_model(cfg, DEVICE)
+    params = dense.init(SEED, device=DEVICE)
+    place_module(params, params_shardings(params, cfg, mesh))
+    batch = placed_batch(train_batches(torch, cfg.vocab,
+                                       *TRAIN_CHECK_BATCH, 1)[0], mesh)
+    out = {}
+    with torch.no_grad(), mesh_context(mesh):
+        for impl in ("dense", "shard_map"):
+            model = build_model(cfg.replace(moe_impl=impl), DEVICE)
+            collectives.LEDGER.reset()
+            loss, metrics = model.loss(params, batch)
+            out[impl] = {"loss": float(full_tensor(loss)),
+                         **{k: float(full_tensor(v))
+                            for k, v in metrics.items() if k != "ce"}}
+    errs = {k: abs(out["shard_map"][k] - v) / max(abs(v), 1e-30)
+            for k, v in out["dense"].items()}
+    log(f"lm sharded moe {arch} ({cfg.n_layers} layers, float32, (1, 1)): "
+        + json.dumps({**out, "rel_errs": errs}))
+    if not all(e <= LM_SHARDED_MOE_RTOL for e in errs.values()):
+        fail(f"lm sharded: shard_map MoE != dense at world size 1: {out}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_sharded_serving(torch, mesh) -> dict:
+    """The sharded one-shot prefill at full width through the kernels
+    (smollm-360m at the serving cut through flash, rwkv6-3b through
+    wkv6), float32, against the unsharded prefill; then LM_SHARDED_DECODE
+    sharded decode steps, the states placed by ``states_shardings``,
+    against unsharded decoding. Returns the kernel launches of the
+    sharded runs."""
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.sharding import (
+        batch_shardings,
+        distribute,
+        params_shardings,
+        place,
+        place_module,
+        states_shardings,
+    )
+    from repro_torch.distributed.spmd import full_tensor
+    from repro_torch.models import build_model
+
+    no_tf32(torch)
+    launches = {"flash_attention": 0, "wkv6": 0}
+    b, t = LM_SHARDED_PROMPT
+    for arch, layers in LM_SHARDED_PREFILL.items():
+        cfg = family_cfg(arch, "float32", n_layers=layers)
+        model = build_model(cfg, DEVICE)
+        params = model.init(SEED, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        tokens = torch.randint(0, cfg.vocab, (b, t + LM_SHARDED_DECODE),
+                               generator=gen, device=DEVICE,
+                               dtype=torch.int32)
+        logits = {}
+        for sharded in (False, True):
+            states = model.init_states(b, t + LM_SHARDED_DECODE)
+            toks = tokens
+            if sharded:
+                place_module(params, params_shardings(params, cfg, mesh))
+                states = place(states, states_shardings(
+                    states, cfg, mesh, global_batch=b))
+                toks = distribute(tokens, batch_shardings(
+                    {"t": tokens}, mesh)["t"])
+                zero_lm_kernel_launches()
+            out = []
+            with mesh_context(mesh if sharded else None):
+                lg, states = model.prefill(params, {"tokens": toks[:, :t]},
+                                           states)
+                out.append(full_tensor(lg))
+                for i in range(LM_SHARDED_DECODE):
+                    lg, states = model.decode_step(params,
+                                                   toks[:, t + i:t + i + 1],
+                                                   states)
+                    out.append(full_tensor(lg))
+            logits[sharded] = torch.stack(out)
+            if sharded:
+                got = lm_kernel_launches()
+                for k in launches:
+                    launches[k] += got[k]
+                kernel = "wkv6" if arch == RWKV_ARCH else "flash_attention"
+                if got[kernel] < cfg.n_layers:
+                    fail(f"lm sharded: the {arch} prefill launched {kernel} "
+                         f"{got[kernel]} times, under its {cfg.n_layers} "
+                         f"layers")
+        err = float((logits[True] - logits[False]).abs().max())
+        log(f"lm sharded serving {arch} ({cfg.n_layers} layers, prefill "
+            f"{b} x {t}, {LM_SHARDED_DECODE} decode steps, float32): "
+            + json.dumps({"max_abs_err": err,
+                          "launches": lm_kernel_launches()}))
+        if not err <= LM_SHARDED_LOGIT_TOL:
+            fail(f"lm sharded: {arch} sharded logits differ by {err}")
+        del params, states, logits
+        torch.cuda.empty_cache()
+    return launches
+
+
+def lm_sharded_dryrun() -> None:
+    """The dry run's 80 cells on the meta device (placement only; the
+    FLOP count is the CLI's): ok / skipped / failed, and the largest
+    per-rank argument bytes per mesh."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch.dryrun import run_cell
+
+    out_dir = ROOT / "build" / "dryrun"
+    counts = {"ok": 0, "skipped": 0, "failed": 0}
+    largest = {}
+    for mesh in ("single", "multi"):
+        for arch in ARCHS:
+            for shape in SHAPES:
+                try:
+                    rec = run_cell(arch, shape, mesh == "multi",
+                                   str(out_dir), flops=False, verbose=False)
+                except Exception as e:
+                    counts["failed"] += 1
+                    log(f"dry run {arch} {shape} {mesh}: {e!r}")
+                    continue
+                counts[rec["status"]] += 1
+                if rec["status"] == "ok":
+                    nb = rec["memory"]["argument_bytes"]
+                    if nb > largest.get(mesh, (0, ""))[0]:
+                        largest[mesh] = (nb, f"{arch} {shape}")
+    log("lm sharded dry run: " + json.dumps(
+        {**counts, "largest_argument_bytes_per_rank": largest}))
+    if counts["failed"] or counts["ok"] + counts["skipped"] != 80:
+        fail(f"the dry run: {counts}")
+
+
+def drive_lm_sharded(torch) -> dict:
+    """The lm sharded phase. The four gloo ranks start first and run
+    beside the checks that time nothing (world size 1 under NCCL on a
+    (1, 1) mesh: the MoE, the sharded prefill and decode through the
+    kernels; the unsharded runs the ranks are held against; the dry run);
+    then, the ranks joined, the timed part alone: the sharded train step,
+    the bf16 step and its elastic round trip. Returns the kernel launches
+    of the sharded prefills."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    ranks = start_lm_ranks()
+    store = ROOT / "build" / "lm_sharded_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh(DEVICE, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        lm_sharded_moe(torch, mesh)
+        log(f"lm sharded moe: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches = lm_sharded_serving(torch, mesh)
+        log(f"lm sharded serving: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        one = lm_one_rank_runs(torch)
+        lm_sharded_dryrun()
+        check_lm_ranks(*ranks, one)
+        log(f"lm sharded four ranks and dry run: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lm_sharded_train(torch, mesh)
+        log(f"lm sharded train: {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        for p in ranks[0]:
+            if p.is_alive():
+                p.kill()
+    return launches
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tasks", type=int, default=None,
                         help="tasks per model on both paths "
-                             f"(default 2^21 = {TOTAL_TASKS}; with "
+                             f"(default 2^20 = {TOTAL_TASKS}; with "
                              "--time-overlap 2^20)")
     parser.add_argument("--time-kernels", action="store_true",
                         help="only time the conflict, block, levels, "
@@ -4207,6 +4897,8 @@ def main(argv=None) -> None:
     parser.add_argument("--time-overlap", action="store_true",
                         help="only time the overlap path of Axelrod and "
                              "SIRS (wall ms per window)")
+    parser.add_argument("--lm-sharded", action="store_true",
+                        help="only the lm sharded phase, after the build")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory holding the repro_torch package "
                              "(--time-overlap, --time-kernels)")
@@ -4257,6 +4949,12 @@ def main(argv=None) -> None:
                 entry = line[max(at - 12, 0):at + 28].split("'")[0]
             if "registers" in line or "spill" in line:
                 log(f"  {name} {entry}: {line.strip()}")
+    if args.lm_sharded:
+        t0 = time.perf_counter()
+        log("lm sharded phase launches: "
+            + json.dumps(drive_lm_sharded(torch)))
+        log(f"lm sharded phase: {time.perf_counter() - t0:.1f} s")
+        return
 
     t0 = time.perf_counter()
     errs = {"conflict": check_conflict_parity(torch, conflict_matrix),
@@ -4333,6 +5031,10 @@ def main(argv=None) -> None:
     family_launches = drive_families(torch)
     log(f"families phase: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    sharded_lm_launches = drive_lm_sharded(torch)
+    log(f"lm sharded phase: {time.perf_counter() - t0:.1f} s")
+
     log("launches barrier path: " + json.dumps(launches)
         + "; overlap path: " + json.dumps(ov_launches)
         + "; task-size phase: " + json.dumps(wide_launches)
@@ -4341,7 +5043,8 @@ def main(argv=None) -> None:
         + "; SIS on BA: " + json.dumps(ba_launches)
         + "; serving path: " + json.dumps(lm_launches)
         + "; rwkv serving path: " + json.dumps(rwkv_launches)
-        + "; families phase: " + json.dumps(family_launches))
+        + "; families phase: " + json.dumps(family_launches)
+        + "; lm sharded phase: " + json.dumps(sharded_lm_launches))
     total = {k: launches.get(k, 0) + v + wide_launches.get(k, 0)
              + hub_launches.get(k, 0) + sharded_launches[k]
              + ba_launches.get(k, 0) for k, v in ov_launches.items()}
@@ -4355,9 +5058,11 @@ def main(argv=None) -> None:
          "sir_wave": wide_launches["sir_wave"],
          "sir_wave s=50": ov_launches["sir_wave"]
          + sharded_launches["sir_wave"]}, errs)
-    rows.append(wkv6_row(torch, rwkv_launches["wkv6"], errs["wkv6"]))
+    rows.append(wkv6_row(torch, rwkv_launches["wkv6"]
+                         + sharded_lm_launches["wkv6"], errs["wkv6"]))
     rows.append(flash_row(torch, lm_launches["flash_attention"]
-                          + family_launches["flash_attention"],
+                          + family_launches["flash_attention"]
+                          + sharded_lm_launches["flash_attention"],
                           errs["flash_attention"]))
     rows += attach_rows
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -32,6 +32,12 @@ here. Every function places its result on ``device`` (default: the card).
                        model's device, parameters requiring grad (and back
                        with ``train_state_to_numpy``, as nested dicts)
 
+Placed states (DTensors on a mesh, ``distributed/sharding.py``): going to
+numpy a DTensor leaf is gathered into its logical array first (a
+collective: every rank calls), so the reference's layout comes out
+whatever the placement; coming back, ``train_state_from_numpy``'s
+``shardings=`` (``train_state_shardings``) places the state on its mesh.
+
 Going to numpy, bfloat16 leaves come out as float32 (exact; numpy has no
 bfloat16 without ml_dtypes). Checkpoints keep bf16 bits
 (``train/checkpoint.py``).
@@ -41,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed.spmd import full_tensor
 from repro_torch.topology import Topology
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import load_leaves, stack_leaves
@@ -136,7 +143,8 @@ def lm_params_from_numpy(model, tree: dict):
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A numpy copy; float leaves as float32."""
+    """A numpy copy of the logical tensor; float leaves as float32."""
+    t = full_tensor(t)
     t = t.detach().float() if t.is_floating_point() else t.detach()
     return np.array(t.cpu().numpy())
 
@@ -180,10 +188,11 @@ def train_state_to_numpy(state) -> dict:
     return _to_reference(state)
 
 
-def train_state_from_numpy(model, tree):
+def train_state_from_numpy(model, tree, *, shardings=None):
     """The reference's ``TrainState`` (NamedTuples or dicts: ``params``,
     ``opt`` with ``mu``, ``nu``, ``count``, and ``step``; numpy leaves)
-    as the port's, on the model's device; the parameters require grad."""
+    as the port's, on the model's device; the parameters require grad.
+    ``shardings`` (``train_state_shardings``): placed on its mesh."""
     from repro_torch.train.optim import adamw_init
     from repro_torch.train.step import TrainState
 
@@ -192,6 +201,10 @@ def train_state_from_numpy(model, tree):
                        torch.zeros((), dtype=torch.int32, device=model.device))
     _load(state, tree)
     params.requires_grad_(True)
+    if shardings is not None:
+        from repro_torch.train.step import place_train_state
+
+        state = place_train_state(state, shardings)
     return state
 
 

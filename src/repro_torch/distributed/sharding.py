@@ -1,10 +1,10 @@
-"""The agent axis of the sharded wavefront engine on ``torch.distributed``.
+"""The agent axis of the sharded wavefront engine on ``torch.distributed``,
+and the LM mesh rules (the second half of this file).
 
-Port of the agent-axis part of ``repro/distributed/sharding.py`` (its LM
-mesh rules are not ported yet). The reference shards agent state over a
-1-D ``("agents",)`` device mesh inside ``shard_map``; here a process
-group takes the mesh's place and each rank holds one contiguous row block
-of every state leaf (``AgentGroup``). Window-local scheduling objects
+Port of ``repro/distributed/sharding.py``. The reference shards agent
+state over a 1-D ``("agents",)`` device mesh inside ``shard_map``; here a
+process group takes the mesh's place and each rank holds one contiguous
+row block of every state leaf (``AgentGroup``). Window-local scheduling objects
 (recipes, levels, halos, slab layouts) stay replicated: every rank
 computes them from the same key, so deriving them costs no communication.
 
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -38,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.obs.profiler import annotate
+from repro_torch.utils.pytree import tree_map_with_path_str
 from repro_torch.utils.device import resolve_device
 
 
@@ -360,3 +362,409 @@ def wave_halo_gather(local, slabs: torch.Tensor, c0: int, c1: int, *,
     with annotate("protocol.wave_halo_gather", agents.device):
         slab = slabs[c0:c1].reshape(-1)
         return halo_gather(local, slab, agents), slab
+
+
+# --------------------------------------------------------------------------
+# LM training/serving mesh
+#
+# Port of the reference's LM rules (DESIGN.md §8 there):
+#
+#   * batch                      -> (pod, data)          [DP]
+#   * attention heads / kv heads -> model                [TP] when divisible
+#   * MLP hidden, vocab          -> model                [TP] when divisible
+#   * experts                    -> the data axes, else model  [EP]
+#   * optimizer moments          -> param spec + the data axes on the
+#                                   largest still-replicated dim [ZeRO-1]
+#
+# Head-structured weights are stored flattened ([D, H·hd]); they shard only
+# on whole-head boundaries, so the rules consult the config
+# (n_heads % model_size) rather than the raw dim size. Only divisible dims
+# are sharded: anything else is replicated, so no placement is uneven.
+#
+# A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (ranks behind
+# it) or a ``LogicalMesh`` (only a shape and axis names: the production
+# meshes of the dry run). The rules read only the axis names and sizes, so
+# both give the same specs. A spec is the port's ``PartitionSpec``: a tuple
+# of None, an axis name or a tuple of axis names, per tensor dim, the values
+# the reference's rules return.
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim: None (replicated), an axis name, or a tuple of axis
+    names (major to minor). Compares equal to the reference's spec of the
+    same entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class LogicalMesh:
+    """A mesh with no ranks behind it: its shape and axis names."""
+
+    shape: tuple
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """axis name -> size, of a ``LogicalMesh`` or a ``DeviceMesh``."""
+    if isinstance(mesh, LogicalMesh):
+        return dict(zip(mesh.axis_names, mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh_axes(mesh).get(name, 1)
+
+
+def data_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh_axes(mesh))
+
+
+def data_size(mesh) -> int:
+    return math.prod(_axis_size(mesh, a) for a in data_axes(mesh))
+
+
+def _divisible(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def _one(axes: tuple):
+    """The spec entry of a group of axes: the name alone, or the tuple."""
+    return axes if len(axes) > 1 else axes[0]
+
+
+def param_pspec(path: str, leaf, cfg, mesh) -> P:
+    """PartitionSpec for one parameter leaf (path: the reference's
+    ``/``-joined names; ``leaf.shape`` the reference's, the stacked layer
+    axis included: the rules index from the end)."""
+    model = _axis_size(mesh, "model")
+    shape = leaf.shape
+
+    def heads_ok(n):
+        return _divisible(n, model)
+
+    if getattr(cfg, "layout", "tp") == "dp":
+        # pure-DP layout: params replicated; the model axis carries extra
+        # batch shards instead of TP
+        return P(*([None] * len(shape)))
+
+    spec: list = [None] * len(shape)
+
+    def set_last(ax):
+        spec[-1] = ax
+
+    def set_first_matrix_dim(ax):
+        if len(shape) >= 2:
+            spec[-2] = ax
+
+    def experts(gate_up: bool):
+        # [.., E, D, Fe] / [.., E, Fe, D]: experts over the data axes
+        # (FSDP-style ownership), else over model; the TP dim differs per
+        # impl: shard_map contracts over D, dense shards the hidden Fe
+        daxes = data_axes(mesh)
+        if daxes and _divisible(cfg.moe.n_experts, data_size(mesh)):
+            spec[-3] = _one(daxes)
+        elif _divisible(cfg.moe.n_experts, model):
+            spec[-3] = "model"
+        if spec[-3] != "model":
+            if getattr(cfg, "moe_impl", "dense").startswith("shard_map"):
+                if _divisible(cfg.d_model, model):
+                    spec[-2 if gate_up else -1] = "model"
+            elif _divisible(cfg.moe.d_expert, model):
+                spec[-1 if gate_up else -2] = "model"
+
+    if re.search(r"embed/table$", path):
+        if _divisible(cfg.vocab, model):
+            spec[-2] = "model"                      # vocab-parallel rows
+    elif re.search(r"lm_head/w$", path):
+        if _divisible(cfg.vocab, model):
+            set_last("model")
+    elif re.search(r"experts/(w_gate|w_up)$", path):
+        experts(True)
+    elif re.search(r"experts/w_out$", path):
+        experts(False)
+    elif re.search(r"(attn|xattn)/wq/[wb]$", path):
+        if heads_ok(cfg.n_heads):
+            set_last("model")
+    elif re.search(r"(attn|xattn)/w[kv]/[wb]$", path):
+        if heads_ok(cfg.n_kv_heads):
+            set_last("model")
+    elif re.search(r"(attn|xattn)/wo/w$", path):
+        if heads_ok(cfg.n_heads):
+            set_first_matrix_dim("model")
+    elif re.search(r"(mlp|dense_mlp)/(w_gate|w_up)/w$", path):
+        if _divisible(cfg.d_ff, model):
+            set_last("model")
+    elif re.search(r"(mlp|dense_mlp)/w_out/w$", path):
+        if _divisible(cfg.d_ff, model):
+            set_first_matrix_dim("model")
+    elif re.search(r"rwkv/tm/w[rkvg]/w$", path):
+        if _divisible(cfg.d_model, model) and heads_ok(
+                cfg.d_model // cfg.hd):
+            set_last("model")
+    elif re.search(r"rwkv/tm/wo/w$", path):
+        if _divisible(cfg.d_model, model) and heads_ok(
+                cfg.d_model // cfg.hd):
+            set_first_matrix_dim("model")
+    elif re.search(r"rwkv/cm/wk/w$", path):
+        if _divisible(cfg.d_ff, model):
+            set_last("model")
+    elif re.search(r"rwkv/cm/wv/w$", path):
+        if _divisible(cfg.d_ff, model):
+            set_first_matrix_dim("model")
+    elif re.search(r"ssm/(w_x|w_z|w_b|w_c|w_dt)/w$", path) and cfg.ssm:
+        if heads_ok(cfg.ssm.n_heads or cfg.d_model // cfg.ssm.head_dim):
+            set_last("model")
+    elif re.search(r"ssm/w_out/w$", path) and cfg.ssm:
+        if heads_ok(cfg.ssm.n_heads or cfg.d_model // cfg.ssm.head_dim):
+            set_first_matrix_dim("model")
+    # everything else (norms, mus, router, biases, prefix): replicated
+    return P(*spec)
+
+
+def zero1_pspec(path: str, leaf, cfg, mesh) -> P:
+    """Optimizer-moment spec: the param spec plus the data axes on the
+    largest still-unsharded, divisible dim (ZeRO-1 state partitioning)."""
+    base = param_pspec(path, leaf, cfg, mesh)
+    spec = list(base) + [None] * (len(leaf.shape) - len(base))
+    daxes = data_axes(mesh)
+    if getattr(cfg, "layout", "tp") == "dp" and "model" in mesh_axes(mesh):
+        daxes = daxes + ("model",)   # ZeRO over every axis in pure-DP
+    dsize = math.prod(_axis_size(mesh, a) for a in daxes) if daxes else 1
+    if dsize <= 1 or not daxes:
+        return P(*spec)
+    used = set()
+    for s in spec:
+        used.update(s if isinstance(s, tuple) else (s,))
+    if any(a in used for a in daxes):    # e.g. 2-D-sharded experts
+        return P(*spec)
+    cand = [(dim, i) for i, dim in enumerate(leaf.shape)
+            if spec[i] is None and dim % dsize == 0]
+    if cand:
+        _, i = max(cand)
+        spec[i] = _one(daxes)
+    return P(*spec)
+
+
+def batch_pspec(mesh, leaf_shape, *, batch_size: int,
+                layout: str = "tp") -> P:
+    """Batch inputs: leading dim over (pod, data); the "dp" layout also
+    folds the model axis into the batch (pure data parallelism)."""
+    candidates = [data_axes(mesh)]
+    if layout == "dp" and "model" in mesh_axes(mesh):
+        candidates.insert(0, data_axes(mesh) + ("model",))
+    for daxes in candidates:
+        dsize = math.prod(_axis_size(mesh, a) for a in daxes) if daxes else 1
+        if daxes and batch_size % dsize == 0:
+            return P(_one(daxes), *([None] * (len(leaf_shape) - 1)))
+    return P(*([None] * len(leaf_shape)))
+
+
+def states_spec(path: str, shape, cfg, mesh, *, global_batch: int) -> P:
+    """Decode/serving state spec: KV caches [L, B, Hkv, S, hd] get
+    batch->data and kv_heads->model (whole heads only; else the sequence
+    with ``seq_shard_cache``); SSM states [L, B, H, P, N] and RWKV
+    ``tm/s`` [L, B, H, hd, hd] batch->data, heads->model; ``last``,
+    ``kpos``/``length``, ``pos`` and ``enc_out`` batch->data; the rest
+    replicated. The states keep the stacked layer axis in both
+    packages."""
+    model = _axis_size(mesh, "model")
+    daxes = data_axes(mesh)
+    batch_ax = _one(daxes) if daxes else None
+    shard_batch = batch_ax is not None and global_batch % data_size(mesh) == 0
+    spec: list = [None] * len(shape)
+    if re.search(r"kv/(k|v)$", path) and len(shape) == 5:
+        if shard_batch:
+            spec[1] = batch_ax
+        if _divisible(cfg.n_kv_heads, model):
+            spec[2] = "model"
+        elif getattr(cfg, "seq_shard_cache", False) \
+                and _divisible(shape[3], model):
+            spec[3] = "model"
+    elif re.search(r"kv/(kpos|length)$", path):
+        if shard_batch and len(shape) >= 2:
+            spec[1] = batch_ax
+    elif path == "pos" and len(shape) == 1:
+        if shard_batch:
+            spec[0] = batch_ax
+    elif re.search(r"/ssm$", path) and len(shape) == 5:
+        if shard_batch:
+            spec[1] = batch_ax
+        if _divisible(cfg.ssm.n_heads or cfg.d_model // cfg.ssm.head_dim,
+                      model):
+            spec[2] = "model"
+    elif re.search(r"tm/s$", path) and len(shape) == 5:
+        if shard_batch:
+            spec[1] = batch_ax
+        if _divisible(cfg.d_model // cfg.hd, model):
+            spec[2] = "model"
+    elif re.search(r"(tm|cm)/last$", path) and len(shape) == 4:
+        if shard_batch:
+            spec[1] = batch_ax
+    elif re.search(r"enc_out$", path) and len(shape) == 3:
+        if shard_batch:
+            spec[0] = batch_ax
+    return P(*spec)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``). A spec one
+    entry longer than the tensor it places is a stacked leaf's (the
+    reference's ``[L, ...]``): its first entry, the layer axis, is dropped
+    for the port's per-layer tensor, whose layer is then whole on every
+    rank of that axis."""
+
+    mesh: Any
+    spec: P
+
+    def local_spec(self, ndim: int) -> P:
+        if len(self.spec) == ndim + 1:
+            return P(*self.spec[1:])
+        if len(self.spec) != ndim:
+            raise ValueError(f"spec {self.spec} for a {ndim}-d tensor")
+        return self.spec
+
+    def placements(self, ndim: int) -> tuple:
+        """DTensor placements on the ``DeviceMesh``, one per mesh dim."""
+        return spec_placements(self.local_spec(ndim), self.mesh)
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape each rank holds of a tensor of ``shape``."""
+        sizes = mesh_axes(self.mesh)
+        out = []
+        for dim, entry in zip(shape, self.local_spec(len(shape))):
+            k = math.prod(sizes[a] for a in _names(entry))
+            if dim % k:
+                raise ValueError(f"dim {dim} does not split {k} ways "
+                                 f"({self.spec})")
+            out.append(dim // k)
+        return tuple(out)
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_placements(spec: P, mesh) -> tuple:
+    """A spec -> DTensor ``Shard``/``Replicate`` placements, one per mesh
+    dim. A tensor dim over several axes (``("pod", "data")``) is
+    ``Shard(i)`` on each of them; DTensor splits such a dim over its mesh
+    dims left to right, major first, which is the reference's order when
+    the spec names the axes in the mesh's order (the rules always do)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    order = list(mesh_axes(mesh))
+    out = [Replicate() for _ in order]
+    for i, entry in enumerate(spec):
+        names = _names(entry)
+        if [order.index(a) for a in names] != sorted(
+                order.index(a) for a in names):
+            raise ValueError(f"spec entry {entry} is not in the mesh's "
+                             f"axis order {order}")
+        for a in names:
+            out[order.index(a)] = Shard(i)
+    return tuple(out)
+
+
+def params_shardings(params, cfg, mesh) -> dict[str, NamedSharding]:
+    """{port leaf name: NamedSharding} of a parameter tree: each leaf's
+    spec is its reference leaf's (stacked, for a layer's leaf)."""
+    return tree_map_with_path_str(
+        lambda path, leaf: NamedSharding(
+            mesh, param_pspec(path, leaf, cfg, mesh)),
+        params, stacked=True)
+
+
+def opt_state_shardings(params, cfg, mesh) -> dict[str, NamedSharding]:
+    """Moment shardings (ZeRO-1) of a tree shaped as the parameters."""
+    return tree_map_with_path_str(
+        lambda path, leaf: NamedSharding(
+            mesh, zero1_pspec(path, leaf, cfg, mesh)),
+        params, stacked=True)
+
+
+def batch_shardings(batch: dict, mesh, *, layout: str = "tp"
+                    ) -> dict[str, NamedSharding]:
+    def f(leaf):
+        b = leaf.shape[0] if leaf.dim() else 1
+        return NamedSharding(mesh, batch_pspec(
+            mesh, leaf.shape, batch_size=b, layout=layout))
+
+    return {k: f(v) for k, v in batch.items()}
+
+
+def states_shardings(states, cfg, mesh, *, global_batch: int
+                     ) -> dict[str, NamedSharding]:
+    """{port leaf name: NamedSharding} of a serving state tree
+    (``Model.init_states``'s, stacked ``[L, ...]`` leaves)."""
+    return tree_map_with_path_str(
+        lambda path, leaf: NamedSharding(mesh, states_spec(
+            path, leaf.shape, cfg, mesh, global_batch=global_batch)),
+        states)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+# --------------------------------------------------------------------------
+# placing tensors on a DeviceMesh
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding):
+    """A DTensor of ``t`` placed by ``sharding``. Every rank holds the same
+    full ``t`` (drawn from one seed, or read from one checkpoint) and keeps
+    its own shard of it: no collective."""
+    from torch.distributed.tensor import distribute_tensor
+
+    t = t.detach()
+    if t.is_inference():
+        # serving states are made under inference_mode; a DTensor over an
+        # inference tensor cannot be viewed (its version counter)
+        t = t.clone()
+    return distribute_tensor(t, sharding.mesh,
+                             sharding.placements(t.dim()), src_data_rank=None)
+
+
+@torch.no_grad()
+def place_module(module: torch.nn.Module, shardings: dict) -> None:
+    """Replace each parameter of ``module`` in place by a DTensor placed by
+    ``shardings[name]``; ``requires_grad`` is kept."""
+    for name, sh in shardings.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner) if owner else module
+        p = getattr(mod, leaf)
+        mod._parameters[leaf] = torch.nn.Parameter(
+            distribute(p.data, sh), requires_grad=p.requires_grad)
+
+
+def place(tree, shardings: dict, prefix: str = ""):
+    """A copy of a tree of tensors (dicts, lists, NamedTuples) with each
+    leaf ``name`` placed by ``shardings[name]`` (names as
+    ``utils.pytree.named_leaves``'s)."""
+    if isinstance(tree, torch.Tensor):
+        return distribute(tree, shardings[prefix[:-1]])
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place(getattr(tree, f), shardings,
+                                  f"{prefix}{f}.") for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: place(v, shardings, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place(v, shardings, f"{prefix}{i}.")
+                for i, v in enumerate(tree)]
+    return tree

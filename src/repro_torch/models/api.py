@@ -5,7 +5,8 @@ the parameters and the streaming states as arguments (``params`` is the
 ``LMParams`` module tree that ``init`` returns); unlike it, ``prefill``
 and ``decode_step`` update the states' tensors **in place** and return
 the same dict. The serving path (``init_states``, ``prefill``,
-``decode_step``) runs under ``torch.inference_mode``; the training path
+``decode_step``) runs under ``torch.inference_mode`` (``no_grad`` when
+the parameters are DTensors on a mesh); the training path
 (``apply_train``, ``loss``) runs under whatever grad mode the caller
 set, so ``torch.autograd.grad`` reaches the parameters through it.
 
@@ -21,10 +22,12 @@ device policy, ``utils/device.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 
+from repro_torch.distributed.spmd import is_dtensor, like
 from repro_torch.models.layers import Init, cross_entropy, dtype_of, embed
 from repro_torch.models.transformer import (
     LMParams,
@@ -36,6 +39,19 @@ from repro_torch.models.transformer import (
     run_encoder,
 )
 from repro_torch.utils.device import resolve_device
+
+
+def _serving(fn):
+    """Run a serving method without autograd: under ``inference_mode``,
+    or ``no_grad`` when the parameters are DTensors (a mesh), whose views
+    ``inference_mode`` does not allow."""
+    @functools.wraps(fn)
+    def run(self, params, *args, **kwargs):
+        placed = is_dtensor(params.embed.table)
+        with torch.no_grad() if placed else torch.inference_mode():
+            return fn(self, params, *args, **kwargs)
+
+    return run
 
 
 class Model:
@@ -132,15 +148,15 @@ class Model:
         x, _ = self._embed_inputs(params, batch, include_prefix)
         t = x.shape[1]
         positions = (states["pos"][:, None]
-                     + torch.arange(t, device=x.device,
-                                    dtype=torch.int32)[None, :])
+                     + like(states["pos"], torch.arange(
+                         t, device=x.device, dtype=torch.int32)[None, :]))
         hidden, _, _ = forward_hidden(
             params, x, self.cfg, positions=positions, states=states["segs"],
             mode="chunk" if chunked else "prefill", enc_out=enc_out)
         states["pos"].add_(t)
         return logits_head(params, hidden[:, -1:], self.cfg)[:, 0]
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, params: LMParams, batch, states, *,
                 chunked: bool = False, include_prefix: bool = True):
         """Prompt pass; returns (last-token logits [B, V], states).
@@ -170,7 +186,7 @@ class Model:
             states["pos"].add_(commit.to(torch.int32))
         return logits_head(params, hidden[:, -1:], self.cfg)[:, 0]
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, params: LMParams, token, states, *,
                     commit: torch.Tensor | None = None):
         """token [B, 1] -> (logits [B, V], states). ``commit`` ([B] bool,
@@ -208,7 +224,7 @@ class EncDecModel(Model):
                                         mode="train", enc_out=enc_out)
         return logits_head(params, hidden, cfg), aux
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, params: LMParams, batch, states, *,
                 chunked: bool = False, include_prefix: bool = True):
         """As ``Model.prefill``, after the encoder over ``src_embeds``;
@@ -220,7 +236,7 @@ class EncDecModel(Model):
         states["enc_out"] = enc_out
         return logits, states
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, params: LMParams, token, states, *,
                     commit: torch.Tensor | None = None):
         return self._decode_hidden(params, token, states, commit,

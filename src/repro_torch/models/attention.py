@@ -43,6 +43,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.spmd import (
+    mesh_coordinate,
+    run_local,
+    split_along,
+)
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.kernels.flash.ref import attention_ref
 from repro_torch.models.layers import Dense, dense, dtype_of, init_dense, rope
@@ -282,25 +287,62 @@ def attention(params: Attention, x, cfg, *, positions, causal=True,
     k = dense(params.wk, src).reshape(b, s, hkv, hd)
     v = dense(params.wv, src).reshape(b, s, hkv, hd)
 
+    # under a mesh the heads are each rank's (local_map); q's heads split
+    # over "model" while K/V stay whole (Hkv does not divide): every rank
+    # expands K/V to the q heads and takes its own
+    if cache is not None and split_along(cache.k, "model") == 2:
+        raise NotImplementedError(
+            "attention over a ring sharded along its sequence "
+            "(seq_shard_cache) is not ported: the dry run places such "
+            "states, no step runs on them")
+    head0 = None
+    if split_along(q, "model") == 2 and split_along(k, "model") != 2:
+        m, msz = mesh_coordinate(q, "model")
+        head0 = m * (hq // msz)
+    o = run_local(_attend, q, (q, k, v, positions, cache, commit),
+                  out_placements=None, cfg=cfg, causal=causal,
+                  window=window, mode=mode, group=hq // hkv, head0=head0)
+    return dense(params.wo, o.reshape(b, t, hq * hd))
+
+
+def _expand_heads(k, group: int, head0: int, n: int):
+    """K/V [B, Hkv, S, hd] -> the ``n`` q heads from ``head0`` on."""
+    return k.repeat_interleave(group, dim=1)[:, head0:head0 + n]
+
+
+def _attend(q, k, v, positions, cache, commit, *, cfg, causal, window,
+            mode, group, head0):
+    """The per-head part of ``attention``: rope, the inner attention (or
+    the ring's) and the ring update, on q [B, T, H, hd], k/v
+    [B, S, Hkv, hd] -> o [B, T, H, hd]. On a rank of a mesh the tensors
+    are its local shards; ``head0`` (not None when K/V are whole while q
+    holds heads ``head0 ..``) expands K/V to those heads."""
+    s = k.shape[1]
     if positions is not None:                   # rope (self-attention only)
         q = rope(q, positions, cfg.rope_theta)
         kpos = positions if cache is None else (
             cache.length[:, None]
-            + torch.arange(s, device=x.device, dtype=torch.int32)[None, :])
+            + torch.arange(s, device=q.device, dtype=torch.int32)[None, :])
         k = rope(k, kpos, cfg.rope_theta)
 
     q = q.transpose(1, 2)                       # [B, H, T, hd]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
+    ka, va, ring = k, v, cache
+    if head0 is not None:
+        n = q.shape[1]
+        ka, va = (_expand_heads(z, group, head0, n) for z in (k, v))
+        if cache is not None:
+            ring = cache._replace(
+                k=_expand_heads(cache.k, group, head0, n),
+                v=_expand_heads(cache.v, group, head0, n))
 
     if cache is not None and mode != "prefill":     # decode / chunk
-        o = _attn_cache(q, k, v, cache, causal=causal, window=window)
+        o = _attn_cache(q, ka, va, ring, causal=causal, window=window)
     else:
-        o = attention_inner(q, k, v, causal=causal, window=window,
+        o = attention_inner(q, ka, va, causal=causal, window=window,
                             impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                             gqa_expand=cfg.gqa_expand)
     if cache is not None:
         _ring_update(cache, k, v, commit)
-
-    out = o.transpose(1, 2).reshape(b, t, hq * hd)
-    return dense(params.wo, out)
+    return o.transpose(1, 2)

@@ -27,6 +27,7 @@ from repro_torch.models.layers import (
     init_rmsnorm,
     rmsnorm,
 )
+from repro_torch.distributed.spmd import align, run_local, settle
 from repro_torch.models.ssm import ssd_chunked, ssd_decode_step
 
 
@@ -95,20 +96,32 @@ def ssm_branch(p: SSMBranch, x, cfg, *, state=None, decode=False,
     cm = dense(p.w_c, x).reshape(b, t, nh, n)
     dt_ = softplus(dense(p.w_dt, x).float() + p.dt_bias[None, None])  # [B,T,H]
 
+    y = run_local(_ssd_heads, xh, (xh, z, bm, cm, dt_,
+                                   align(p.a_log, xh, 2, 0),
+                                   align(p.d_skip, xh, 2, 0), state, commit),
+                  out_placements=None, decode=decode, chunk=s.chunk,
+                  dtype=x.dtype)
+    return dense(p.w_out, y)
+
+
+def _ssd_heads(xh, z, bm, cm, dt_, a_log, d_skip, state, commit, *, decode,
+               chunk, dtype):
+    """The per-head part of ``ssm_branch`` (each rank's heads on a mesh):
+    the SSD scan (or one decode step), the skip and the gate -> y
+    [B, T, H·P]."""
+    b, t, nh, pd = xh.shape
     kw = {} if state is None else dict(s_out=state, commit=commit)
     if decode:
         if t != 1:
             raise ValueError(f"a decode step takes one token, got T={t}")
-        y, _ = ssd_decode_step(state, xh[:, 0], dt_[:, 0], p.a_log,
+        y, _ = ssd_decode_step(state, xh[:, 0], dt_[:, 0], a_log,
                                bm[:, 0], cm[:, 0], **kw)
         y = y[:, None]                                   # [B, 1, H, P]
     else:
-        y, _ = ssd_chunked(xh, dt_, p.a_log, bm, cm, h0=state,
-                           chunk=s.chunk, **kw)
-
-    y = y + p.d_skip[None, None, :, None] * xh.float()
-    y = (y.to(x.dtype) * z).reshape(b, t, nh * pd)
-    return dense(p.w_out, y)
+        y, _ = ssd_chunked(xh, dt_, a_log, bm, cm, h0=state, chunk=chunk,
+                           **kw)
+    y = y + d_skip[None, None, :, None] * xh.float()
+    return (y.to(dtype) * z).reshape(b, t, nh * pd)
 
 
 def hymba_block(p: HymbaBlock, x, cfg, *, positions, is_global: bool,
@@ -123,5 +136,5 @@ def hymba_block(p: HymbaBlock, x, cfg, *, positions, is_global: bool,
                          commit=commit)
     ssm_out = ssm_branch(p.ssm, x, cfg, state=ssm_state,
                          decode=mode == "decode", commit=commit)
-    return 0.5 * (rmsnorm(p.norm_attn, attn_out, cfg.norm_eps)
-                  + rmsnorm(p.norm_ssm, ssm_out, cfg.norm_eps))
+    return 0.5 * (rmsnorm(p.norm_attn, settle(attn_out, x), cfg.norm_eps)
+                  + rmsnorm(p.norm_ssm, settle(ssm_out, x), cfg.norm_eps))

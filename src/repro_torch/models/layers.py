@@ -20,6 +20,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.spmd import (
+    is_dtensor,
+    mesh_coordinate,
+    run_local,
+    split_along,
+)
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -125,7 +132,36 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p.table):
+        return _embed_sharded(p.table, tokens)
     return p.table[tokens]
+
+
+def _embed_sharded(table, tokens):
+    """The lookup on a mesh: each rank looks up the rows of the table it
+    holds (a vocab-parallel table, rows split over "model") and zeros the
+    others; the partial sums are reduced once, to the tokens' placements.
+    (DTensor's own embedding rule leaves a masked partial that cannot be
+    reduced twice, and the residual stream and the backward both read
+    it.)"""
+    from torch.distributed.tensor import Partial
+
+    rows = split_along(table, "model") == 0
+    m, msz = mesh_coordinate(table, "model")
+    n = table.shape[0] // msz if rows else table.shape[0]
+
+    def lookup(t, tok):
+        if not rows:
+            return t[tok]
+        idx = tok.long() - m * n
+        ok = (idx >= 0) & (idx < n)
+        return torch.where(ok[..., None], t[idx.clamp(0, n - 1)], 0.0)
+
+    out = list(tokens.placements)
+    if rows:
+        out[table.device_mesh.mesh_dim_names.index("model")] = Partial()
+    y = run_local(lookup, tokens, (table, tokens), out_placements=out)
+    return y.redistribute(placements=tokens.placements)
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
@@ -154,6 +190,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                   z_loss: float = 0.0) -> torch.Tensor:
     """logits [..., V] (any float dtype), labels int [...]. Mean loss in
     float32; label -100 (any negative) masks the position out."""
+    if is_dtensor(logits):
+        # the vocab whole on every rank (an all-gather of a vocab-sharded
+        # head), the rows as the labels' (batch over the data axes)
+        logits = logits.redistribute(placements=labels.placements)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]

@@ -16,7 +16,7 @@ Port of ``repro/models/moe.py`` (its no-mesh path; the expert-parallel
 
 The dispatch matches the reference's op for op, because which pairs are
 dropped depends on it: a stable argsort (``jnp.argsort`` is stable),
-``repeat_interleave`` for ``jnp.repeat``, ``bincount(minlength=E)``, the
+``repeat_interleave`` for ``jnp.repeat``, per-expert counts, the
 trash row at slot C and the same Python capacity. Every row of ``x``
 competes for capacity: a decode step's idle slots too, as in the
 reference's engine.
@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.spmd import is_dtensor, run_local
 from repro_torch.models.layers import (
     Dense,
     SwiGLU,
@@ -86,9 +87,19 @@ def capacity(n_tokens: int, cfg) -> int:
     return int(n_tokens * m.top_k / m.n_experts * m.capacity_factor + 1)
 
 
+def expert_counts(se: torch.Tensor, e: int) -> torch.Tensor:
+    """The pairs routed to each of the ``e`` experts (int64 [E]): the
+    reference's ``bincount(length=E)``, as a scatter-add, which has a
+    meta-device kernel (the dry run traces the layer there)."""
+    return torch.zeros(e, dtype=torch.int64, device=se.device).scatter_add_(
+        0, se, torch.ones_like(se))
+
+
 def moe_layer(p: MoE, x: torch.Tensor, cfg):
     """x [B, S, D] -> (y [B, S, D], aux: ``load_balance_loss``,
     ``router_z_loss``, ``overflow_fraction`` as float32 scalars)."""
+    if is_dtensor(x):
+        return _moe_replicated(p, x, cfg)
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
@@ -110,7 +121,7 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg):
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
 
     # rank within expert: position - first position of the expert
-    counts = torch.bincount(se, minlength=e)                   # [E]
+    counts = expert_counts(se, e)                   # [E]
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(n * k, device=dev) - starts[se]
     keep = rank < cap
@@ -146,3 +157,41 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg):
     aux = {"load_balance_loss": load_balance, "router_z_loss": z,
            "overflow_fraction": overflow}
     return out, aux
+
+
+class _Namespace(dict):
+    """Dotted access to a dict of tensors (None for a missing name): a
+    parameter tree of local tensors that ``moe_layer`` reads as it reads
+    its module."""
+
+    def __getattr__(self, name):
+        return self.get(name)
+
+
+def _as_tree(named: dict) -> _Namespace:
+    root = _Namespace()
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, _Namespace())
+        node[leaf] = t
+    return root
+
+
+def _moe_replicated(p: MoE, x, cfg):
+    """The dense dispatch on a mesh: the capacity and the drops are the
+    whole batch's (the reference's GSPMD keeps the single-device
+    semantics), so the tokens and the layer's parameters are replicated
+    here explicitly (all-gathers; the experts' shards over the data axes
+    and "model" gathered per layer) and every rank runs the dispatch on
+    the whole batch; ``moe_impl="shard_map"`` is the expert-parallel
+    schedule (``moe_sharded.py``)."""
+    from torch.distributed.tensor import Replicate
+
+    rep = [Replicate()] * x.device_mesh.ndim
+    named = {n: t.redistribute(placements=rep)
+             for n, t in p.named_parameters()}
+    xr = x.redistribute(placements=rep)
+    return run_local(lambda xl, lv: moe_layer(_as_tree(lv), xl, cfg), xr,
+                     (xr, named), out_placements=[rep] * 4)

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.spmd import align, is_dtensor, run_local
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import check_commit, write_state, wkv6_ref
 from repro_torch.models.layers import Dense, _param, dense, dtype_of, \
@@ -167,10 +168,7 @@ def rwkv_time_mix(p: TimeMix, x, cfg, *, state=None, impl="chunked",
     """x [B, T, D] (the normed input). ``state``: ``{"last" [B, 1, D],
     "s" [B, H, D, D]}`` or None; updated in place (``commit`` rows only).
     Returns out [B, T, D]."""
-    b, t, d = x.shape
     hd = cfg.hd
-    h = d // hd
-
     last = None if state is None else state["last"]
     xs = _token_shift(x, last)
 
@@ -186,24 +184,15 @@ def rwkv_time_mix(p: TimeMix, x, cfg, *, state=None, impl="chunked",
                                 torch.tanh(dense(p.w_lora_a, xw))).float()
     w = torch.exp(-torch.exp(wlog))                 # (0,1) data-dependent
 
-    def split(z):
-        return z.reshape(b, t, h, hd).transpose(1, 2)
-
-    # w is cast to x's dtype before the WKV, as in the reference (:142)
-    rh, kh, vh, wh = split(r), split(k), split(v), split(w.to(x.dtype))
-    u = p.u.float()
-
-    # the state is read and written in place, only the commit rows
+    # the heads (each rank's on a mesh): w is cast to x's dtype before the
+    # WKV, as in the reference (:142)
+    wx = w.to(x.dtype)
+    if is_dtensor(r) and wx.placements != r.placements:
+        wx = wx.redistribute(placements=r.placements)   # a local slice
     kw = {} if state is None else dict(s0=state["s"], s_out=state["s"],
                                        commit=commit)
-    wkv = {"pallas": wkv6, "ref": wkv6_ref}.get(impl, wkv6_chunked)
-    o, _ = wkv(rh, kh, vh, wh, u, **kw)
-
-    # per-head groupnorm (population variance, as jnp.var)
-    mean = o.mean(dim=-1, keepdim=True)
-    var = o.var(dim=-1, keepdim=True, correction=0)
-    o = (o - mean) * torch.rsqrt(var + GROUPNORM_EPS)
-    o = o.transpose(1, 2).reshape(b, t, d)
+    o = run_local(_wkv_heads, r, (r, k, v, wx, align(p.u, r, 2, 0), kw),
+                  out_placements=None, hd=hd, impl=impl)
     o = o * p.ln_scale.float()
     o = o.to(x.dtype) * g
 
@@ -211,6 +200,25 @@ def rwkv_time_mix(p: TimeMix, x, cfg, *, state=None, impl="chunked",
     if state is not None:
         _write(state["last"], x[:, -1:], commit)
     return out
+
+
+def _wkv_heads(r, k, v, w, u, state_kw, *, hd, impl):
+    """The per-head part of the time-mix: r/k/v/w [B, T, H·hd] -> the WKV
+    through ``impl`` (the state in ``state_kw`` read and written in place)
+    and the per-head groupnorm -> [B, T, H·hd] float32."""
+    b, t, d = r.shape
+    h = d // hd
+
+    def split(z):
+        return z.reshape(b, t, h, hd).transpose(1, 2)
+
+    wkv = {"pallas": wkv6, "ref": wkv6_ref}.get(impl, wkv6_chunked)
+    o, _ = wkv(split(r), split(k), split(v), split(w), u.float(), **state_kw)
+    # per-head groupnorm (population variance, as jnp.var)
+    mean = o.mean(dim=-1, keepdim=True)
+    var = o.var(dim=-1, keepdim=True, correction=0)
+    o = (o - mean) * torch.rsqrt(var + GROUPNORM_EPS)
+    return o.transpose(1, 2).reshape(b, t, d)
 
 
 def rwkv_channel_mix(p: ChannelMix, x, *, state=None, commit=None):

@@ -22,11 +22,15 @@ encoder's output reaches no logit of seamless-m4t in either package
 (PERF.md, open questions). The layer kind is ported and held against the
 reference's layer on its own.
 
-The reference's mesh-only knobs change nothing here, as they change
-nothing in the reference without a mesh (and the port has none yet,
-ROADMAP.md, queue 1, item D.6): ``moe_impl="shard_map"`` runs
-``moe_layer``, ``tp_shard_map`` the plain attention block, and
-``seq_parallel`` adds no constraint.
+Under a mesh (``distributed/context.py``) the parameters, the batch and
+the states are DTensors (``distributed/sharding.py``) and the same code
+runs on them; the mesh knobs act as in the reference: ``moe_impl``
+``"shard_map"``/``"shard_map_wg"`` runs the expert-parallel MoE
+(``moe_sharded.py``), ``tp_shard_map`` the Megatron-SP block
+(``block_sharded.py``: training without a cache, when the q heads divide
+the model axis), and ``seq_parallel`` places the residual stream
+sequence-sharded over model between blocks (values unchanged). Without a
+mesh they change nothing, as in the reference.
 
 Streaming state keeps the reference's **stacked** layout: every leaf of a
 segment's state has a leading layer axis (``k`` [L, B, Hkv, Smax, hd],
@@ -44,6 +48,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.context import get_mesh
+from repro_torch.distributed.sharding import (
+    P,
+    data_axes,
+    mesh_axes,
+    spec_placements,
+)
+from repro_torch.distributed.spmd import is_dtensor, settle
 from repro_torch.models.attention import (
     attention,
     init_attention,
@@ -198,39 +210,56 @@ def apply_layer(kind: str, lp: Layer, x, cfg, *, positions, is_global,
     (x, aux): the MoE layer's aux dict, None for the other kinds."""
     if kind == "rwkv":
         st = state or {"tm": None, "cm": None}
-        x = x + rwkv_time_mix(lp.rwkv.tm, rmsnorm(lp.norm1, x, cfg.norm_eps),
-                              cfg, state=st["tm"], impl=cfg.attn_impl,
-                              commit=commit)
-        return x + rwkv_channel_mix(lp.rwkv.cm,
-                                    rmsnorm(lp.norm2, x, cfg.norm_eps),
-                                    state=st["cm"], commit=commit), None
+        x = x + settle(rwkv_time_mix(
+            lp.rwkv.tm, rmsnorm(lp.norm1, x, cfg.norm_eps), cfg,
+            state=st["tm"], impl=cfg.attn_impl, commit=commit), x)
+        return x + settle(rwkv_channel_mix(
+            lp.rwkv.cm, rmsnorm(lp.norm2, x, cfg.norm_eps), state=st["cm"],
+            commit=commit), x), None
 
     if kind == "hymba":
         st = state or {"kv": None, "ssm": None}
-        x = x + hymba_block(lp.hymba, rmsnorm(lp.norm1, x, cfg.norm_eps),
-                            cfg, positions=positions, is_global=is_global,
-                            cache=st["kv"], ssm_state=st["ssm"], mode=mode,
-                            commit=commit)
-        return x + swiglu(lp.mlp, rmsnorm(lp.norm2, x, cfg.norm_eps)), None
+        x = x + settle(hymba_block(
+            lp.hymba, rmsnorm(lp.norm1, x, cfg.norm_eps), cfg,
+            positions=positions, is_global=is_global, cache=st["kv"],
+            ssm_state=st["ssm"], mode=mode, commit=commit), x)
+        return x + settle(swiglu(lp.mlp, rmsnorm(lp.norm2, x, cfg.norm_eps)),
+                          x), None
 
     # attention families
     window = None if is_global else cfg.sliding_window
-    x = x + attention(lp.attn, rmsnorm(lp.norm1, x, cfg.norm_eps), cfg,
-                      positions=positions, causal=kind != "enc",
-                      window=window,
-                      cache=None if state is None else state["kv"],
-                      mode=mode, commit=commit)
+    if kind == "attn" and cfg.tp_shard_map and mode == "train" \
+            and state is None:
+        mesh = get_mesh()
+        if mesh is not None and "model" in mesh_axes(mesh) \
+                and cfg.n_heads % mesh_axes(mesh)["model"] == 0:
+            from repro_torch.models.block_sharded import \
+                attn_mlp_block_sharded
+
+            return attn_mlp_block_sharded(lp, x, cfg, positions=positions,
+                                          window=window, mesh=mesh), None
+    x = x + settle(attention(
+        lp.attn, rmsnorm(lp.norm1, x, cfg.norm_eps), cfg,
+        positions=positions, causal=kind != "enc", window=window,
+        cache=None if state is None else state["kv"], mode=mode,
+        commit=commit), x)
     if kind == "xdec":
         # cross-attention: K/V from the encoder's output, no rope, no
         # mask, no cache (recomputed every step, as in the reference)
-        x = x + attention(lp.xattn, rmsnorm(lp.normx, x, cfg.norm_eps), cfg,
-                          positions=None, causal=False, kv_input=enc_out,
-                          mode="train")
+        x = x + settle(attention(
+            lp.xattn, rmsnorm(lp.normx, x, cfg.norm_eps), cfg,
+            positions=None, causal=False, kv_input=enc_out, mode="train"), x)
     hn = rmsnorm(lp.norm2, x, cfg.norm_eps)
     if kind == "moe":
-        h, aux = moe_layer(lp.moe, hn, cfg)
-        return x + h, aux
-    return x + swiglu(lp.mlp, hn), None
+        mesh = get_mesh() if cfg.moe_impl.startswith("shard_map") else None
+        if mesh is not None:
+            from repro_torch.models.moe_sharded import moe_layer_sharded
+
+            h, aux = moe_layer_sharded(lp.moe, hn, cfg, mesh)
+        else:
+            h, aux = moe_layer(lp.moe, hn, cfg)
+        return x + settle(h, x), aux
+    return x + settle(swiglu(lp.mlp, hn), x), None
 
 
 #: the MoE layer's aux values, summed over the layers (0 elsewhere)
@@ -240,6 +269,35 @@ AUX_KEYS = ("load_balance_loss", "router_z_loss", "overflow_fraction")
 def _zero_aux(device) -> dict[str, torch.Tensor]:
     return {k: torch.zeros((), dtype=torch.float32, device=device)
             for k in AUX_KEYS}
+
+
+def _sp_constraint(x, cfg):
+    """Megatron-style sequence parallelism: between blocks the residual
+    stream is sharded over (T -> model), a redistribute of the DTensor
+    (values unchanged); nothing without a mesh."""
+    if not cfg.seq_parallel or x.shape[1] % 16 or not is_dtensor(x):
+        return x
+    mesh = get_mesh()
+    if mesh is None or "model" not in mesh_axes(mesh):
+        return x
+    dax = data_axes(mesh)
+    bspec = (dax if len(dax) > 1 else dax[0]) if dax else None
+    return x.redistribute(placements=spec_placements(
+        P(bspec, "model", None), mesh))
+
+
+def _whole_sequence(x):
+    """The residual stream whole along T again after sequence-parallel
+    blocks (``tp_shard_map``, ``seq_parallel``): the final norm and the
+    head read whole rows, and DTensor (torch 2.11) cannot flatten a
+    sequence-sharded [B, T, D] for the head's product. A redistribute
+    (an all-gather over model); nothing without a mesh."""
+    if not is_dtensor(x) or not any(p.is_shard(1) for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(placements=[
+        Replicate() if p.is_shard(1) else p for p in x.placements])
 
 
 def run_segment(seg: Segment, layers, x, cfg, *, positions, state=None,
@@ -254,6 +312,7 @@ def run_segment(seg: Segment, layers, x, cfg, *, positions, state=None,
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     aux = _zero_aux(x.device)
     for i, lp in enumerate(layers):
+        x = _sp_constraint(x, cfg)
         kw = dict(positions=positions, is_global=seg.is_global,
                   state=_layer_state(state, i), mode=mode, commit=commit,
                   enc_out=enc_out)
@@ -282,7 +341,7 @@ def forward_hidden(params: LMParams, x, cfg, *, positions, states=None,
                             state=st, mode=mode, commit=commit,
                             enc_out=enc_out)
         aux = {k: aux[k] + sa[k] for k in aux}
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    x = rmsnorm(params.final_norm, _whole_sequence(x), cfg.norm_eps)
     return x, states, aux
 
 

@@ -1,6 +1,6 @@
 """Manifest-versioned, async checkpointing in the reference's layout.
 
-Port of ``repro/train/checkpoint.py`` for one host. Layout:
+Port of ``repro/train/checkpoint.py``. Layout:
 
     <dir>/step_<N>/      N zero-padded to 8 digits
         manifest.json    the step and, per leaf path, shape and dtype
@@ -30,6 +30,14 @@ checkpoints are kept. ``restore`` writes into the tensors of ``like``
 in place, each leaf of the file into one of the same shape and dtype,
 and returns it with the step: a state of tens of GB gets no second copy
 on the card.
+
+A placed state (DTensors on a mesh, ``train/step.py``) is saved as its
+logical (full) arrays: every rank gathers each leaf (so every rank calls
+``save``), rank 0 writes, and ``wait`` ends in a barrier, so no rank
+reads a directory before its commit. ``restore(like, shardings=)`` fills
+a full ``like`` and places it by ``shardings``, which may be for another
+mesh than the save's (``distributed/elastic.py``); a ``like`` already
+placed is filled shard by shard.
 """
 from __future__ import annotations
 
@@ -42,7 +50,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils.pytree import load_leaves, stack_leaves
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import place
+from repro_torch.distributed.spmd import full_tensor, is_dtensor
+from repro_torch.utils.pytree import load_leaves, named_leaves, stack_leaves
 
 #: how numpy stores a bfloat16 leaf without ml_dtypes (and with it, on disk)
 BF16_RECORD = np.dtype("V2")
@@ -55,6 +67,22 @@ def _host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_RECORD)
     return t.numpy()
+
+
+def _placed(tree) -> bool:
+    return any(is_dtensor(t) for _, t in named_leaves(tree))
+
+
+@torch.no_grad()
+def _write_leaf(dst: torch.Tensor, x: torch.Tensor) -> None:
+    """``dst`` <- the full tensor ``x``; into a DTensor, its own shard."""
+    if is_dtensor(dst):
+        from torch.distributed.tensor import distribute_tensor
+
+        x = distribute_tensor(x.to(dst.device), dst.device_mesh,
+                              dst.placements, src_data_rank=None).to_local()
+        dst = dst.to_local()
+    dst.copy_(x)
 
 
 def _dtype_name(a: np.ndarray) -> str:
@@ -78,14 +106,18 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._group = False     # a placed state was saved: wait() syncs
 
     # ----------------------------------------------------------- save
     def save(self, step: int, state: Any, *, blocking: bool = False,
              extra: dict | None = None):
         """Async by default: the device-to-host copy before returning, the
-        file I/O in a thread."""
-        host = stack_leaves(state, _host)
+        file I/O in a thread. A placed state is gathered on every rank
+        (all must call) and written by rank 0."""
+        placed = _placed(state)
+        host = stack_leaves(state, lambda t: _host(full_tensor(t)))
         self.wait()                 # one outstanding write at a time
+        self._group = placed        # wait() then ends in a barrier
 
         def write():
             try:
@@ -93,11 +125,15 @@ class CheckpointManager:
             except BaseException as e:  # re-raised by the next wait()
                 self._error = e
 
-        if blocking:
+        if placed and dist.get_rank() != 0:
+            pass                    # rank 0 writes the logical arrays
+        elif blocking:
             self._write(step, host, extra or {})
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
+        if blocking and placed:
+            self.wait()
 
     def _write(self, step: int, host: dict, extra: dict):
         path = os.path.join(self.dir, f"step_{step:08d}")
@@ -133,6 +169,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._group:
+            self._group = False
+            dist.barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from error
@@ -151,11 +190,14 @@ class CheckpointManager:
         steps = self.committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, *, step: int | None = None
-                ) -> tuple[Any, int]:
+    def restore(self, like: Any, *, step: int | None = None,
+                shardings: Any = None) -> tuple[Any, int]:
         """Restore into the tensors of ``like`` (in place, on their
         devices; ``utils/pytree.load_leaves``: the same leaves, each of the
-        same shape and dtype); returns (like, step)."""
+        same shape and dtype); returns (like, step). With ``shardings``
+        (a tree of ``NamedSharding`` as ``like``'s, possibly for another
+        mesh than the save's) a full ``like`` is then placed by them and
+        the placed state returned."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -166,5 +208,11 @@ class CheckpointManager:
         with np.load(os.path.join(path, "shard_0.npz")) as data:
             load_leaves(like, (k.replace("|", "/") for k in data.files),
                         lambda p: _from_host(p, data[p.replace("/", "|")],
-                                             dtypes[p]))
+                                             dtypes[p]), _write_leaf)
+        if shardings is not None and not _placed(like):
+            from repro_torch.train.step import TrainState, place_train_state
+
+            like = (place_train_state(like, shardings)
+                    if isinstance(like, TrainState) else
+                    place(like, shardings))
         return like, step

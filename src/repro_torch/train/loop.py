@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-Port of ``repro/train/loop.py`` for one device:
+Port of ``repro/train/loop.py``:
   * periodic async checkpointing and crash-consistent resume: a restart
     picks up from the last committed step; the data pipeline is
     step-indexed, so no data state is saved;
@@ -9,8 +9,10 @@ Port of ``repro/train/loop.py`` for one device:
     ``straggler_factor`` x the EWMA are recorded;
   * metrics CSV logging (step, loss, grad_norm, lr, seconds);
   * ``ElasticRescale``, the exception the environment raises when the
-    device topology changed (the re-sharded restart comes with the
-    sharded LM modules, ROADMAP.md, queue 1, item D.6).
+    device topology changed (the re-sharded restart:
+    ``distributed/elastic.py``);
+  * on a mesh: ``state_shardings`` places a restored state, and
+    ``put_batch`` places each batch (``train/step.py``).
 
 Each step ends in one wait for the device (the reference's
 ``block_until_ready``) so the watchdog times the step's work; batches
@@ -27,6 +29,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.spmd import local
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import Prefetcher, SyntheticLMStream
 
@@ -77,16 +80,19 @@ def _host_metrics(metrics: dict) -> dict:
 
 
 def train_loop(step_fn: Callable, state, stream: SyntheticLMStream,
-               cfg: LoopConfig) -> tuple[Any, LoopReport]:
+               cfg: LoopConfig, *, state_shardings=None,
+               put_batch: Callable | None = None) -> tuple[Any, LoopReport]:
     """Runs step_fn until total_steps, checkpointing and resuming."""
     ckpt = CheckpointManager(cfg.ckpt_dir)
     resumed_from = None
     latest = ckpt.latest_step()
     if latest is not None:
-        state, _ = ckpt.restore(state, step=latest)
+        state, _ = ckpt.restore(state, step=latest,
+                                shardings=state_shardings)
         resumed_from = latest
 
-    start_step = int(state.step)
+    step_t = local(state.step)
+    start_step = int(step_t)
     prefetch = Prefetcher(stream, start_step=start_step)
     writer = None
     if cfg.metrics_csv:
@@ -101,7 +107,9 @@ def train_loop(step_fn: Callable, state, stream: SyntheticLMStream,
         step = start_step
         while step < cfg.total_steps:
             _, batch = prefetch.next()
-            batch = batch_to_device(batch, state.step.device)
+            batch = batch_to_device(batch, step_t.device)
+            if put_batch is not None:
+                batch = put_batch(batch)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             _wait(metrics["loss"])

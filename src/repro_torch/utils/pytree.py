@@ -98,12 +98,16 @@ def stack_leaves(tree: Any, convert: Callable[[torch.Tensor], np.ndarray]
 
 @torch.no_grad()
 def load_leaves(tree: Any, paths: Iterable[str],
-                read: Callable[[str], torch.Tensor]) -> None:
+                read: Callable[[str], torch.Tensor],
+                write: Callable[[torch.Tensor, torch.Tensor], Any] = None
+                ) -> None:
     """Fill the tensors of the port tree ``tree`` in place from the
     reference's leaves: ``paths`` are the leaves on offer and ``read(path)``
     gives one as a tensor, a segment's layers stacked ``[L, ...]`` (row i
     fills layer i). Both sides must hold the same paths, and every tensor
-    read the shape and dtype of the one it fills."""
+    read the shape and dtype of the one it fills. ``write(dst, x)`` stores
+    one (default ``dst.copy_(x)``)."""
+    write = write or (lambda dst, x: dst.copy_(x))
     want = reference_leaves(tree)
     paths = set(paths)
     if paths != set(want):
@@ -127,7 +131,42 @@ def load_leaves(tree: Any, paths: Iterable[str],
                     f"{name}: reference {x.dtype} of shape "
                     f"{tuple(x.shape)}, port {dst.dtype} of shape "
                     f"{tuple(dst.shape)}")
-            dst.copy_(x)
+            write(dst, x)
+
+
+def tree_map_with_path_str(fn: Callable[[str, Any], Any], tree: Any, *,
+                           stacked: bool = False) -> dict[str, Any]:
+    """{port leaf name: ``fn(path, leaf)``} over a port tree, ``path`` the
+    reference's ``/``-joined path of the leaf (``reference_path``): the
+    reference's ``tree_map_with_path_str``, for the logical-axis sharding
+    rules to match parameter names.
+
+    The port's per-layer leaves lack the reference's stacked layer axis.
+    The rules index from the end, so most see no difference; but ZeRO-1
+    may pick the layer axis itself. With ``stacked=True`` a layer's leaf
+    reaches ``fn`` as a meta tensor of the reference's stacked shape
+    ``[L, ...]`` (one call per stacked leaf, its result shared by the
+    layers), so the rules see what the reference's see. Trees that keep
+    the stacked layout themselves (the serving states) need no such
+    step."""
+    named = list(named_leaves(tree))
+    paths = [reference_path(n) for n, _ in named]
+    n_layers: dict[str, int] = {}
+    for path, layer in paths:
+        if layer is not None:
+            n_layers[path] = max(n_layers.get(path, 0), layer + 1)
+    out: dict[str, Any] = {}
+    memo: dict[str, Any] = {}
+    for (name, t), (path, layer) in zip(named, paths):
+        if stacked and layer is not None:
+            if path not in memo:
+                memo[path] = fn(path, torch.empty(
+                    (n_layers[path],) + tuple(t.shape), dtype=t.dtype,
+                    device="meta"))
+            out[name] = memo[path]
+        else:
+            out[name] = fn(path, t)
+    return out
 
 
 def tree_param_count(tree: Any) -> int:

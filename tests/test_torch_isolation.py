@@ -4,7 +4,8 @@ An AST scan shows that nothing under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package; and with CUDA unavailable,
 every entry point called without ``device`` raises before doing any work
 instead of running on the CPU. Every public name of the reference's core,
-topology, engine and train packages has a counterpart in the port."""
+topology, engine, train and distributed packages has a counterpart in the
+port."""
 import ast
 from pathlib import Path
 
@@ -61,7 +62,12 @@ def test_port_files_found():
                    "train/__init__.py", "train/optim.py",
                    "train/schedule.py", "train/step.py", "train/data.py",
                    "train/checkpoint.py", "train/loop.py",
-                   "launch/train.py", "utils/pytree.py"):
+                   "launch/train.py", "utils/pytree.py",
+                   "distributed/compress.py", "distributed/context.py",
+                   "distributed/elastic.py", "distributed/spmd.py",
+                   "distributed/collectives.py", "launch/mesh.py",
+                   "launch/dryrun.py", "models/block_sharded.py",
+                   "models/moe_sharded.py"):
         assert f"src/repro_torch/{module}" in rel
 
 
@@ -118,7 +124,7 @@ def test_constructors_without_device_raise(no_cuda, call):
 
 
 @pytest.mark.parametrize("package", ["core", "topology", "engine",
-                                     "train"])
+                                     "train", "distributed"])
 def test_reference_public_names_have_counterparts(package):
     """Every name in the reference's ``__all__`` resolves in the port's
     package of the same name (and is listed in its ``__all__``)."""
