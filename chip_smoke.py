@@ -154,18 +154,20 @@ failure:
      with ``chunk=4096``, built on the card, their seconds, edges and max
      degree printed (the reference's BENCH_topology.json figures beside,
      as a note), the attachment kernel's launches counted (set to 0 just
-     before each BA build, read just after: 1 exact, 245 chunked);
-     (b) the attachment kernel against its plain version (``ref.py``,
-     another algorithm over the same draws) at n = 10^5 and 10^6, exact
-     and chunked — targets and the whole endpoint multiset bit for bit —
-     timed at 10^6 per launch (CUDA events around each launch, enqueued
-     behind a sleep so no launch waits for the host; the chunked build's
-     serial warm-up and its frozen blocks apart; the call's wall time
-     beside) against the plain version and
-     its bound; the card's
-     ER graphs equal the CPU's builds at 10^5 and 10^6, its BA graphs
-     (exact and chunked) at 10^5; (c) SIS on the exact BA graph at
-     n = 10^6 (a task reads up to 1 + max degree ids) through
+     before each BA build, read just after: one launch a build, exact or
+     chunked); (b) the attachment kernel against its plain version
+     (``ref.py``, another algorithm over the same draws) at n = 10^5 and
+     10^6, exact and chunked — targets and the whole endpoint multiset
+     bit for bit — timed at 10^6 (CUDA events around the launch of each
+     of 5 builds, enqueued behind a sleep so none waits for the host; the
+     median, and the first call's wall time beside) against the plain
+     version, its bound and a model of its critical path (the longest
+     chain of dependent lookups, ``chain_depth`` of the plain run,
+     printed beside, and the same operations at the INT32 rate), and
+     one exact build, then 20, under torch.profiler (whether it records
+     the kernel); the card's ER graphs equal the CPU's builds at 10^5
+     and 10^6, its BA graphs (exact and chunked) at 10^5; (c) SIS on
+     the exact BA graph at n = 10^6 (a task reads up to 1 + max degree ids) through
      ``wavefront`` and ``wavefront_overlap`` at W = 4096 for 8 windows,
      as phase 10 drives the hub graph: launches counted, the final
      state against the oracle and a CPU run of the port (state and
@@ -342,6 +344,10 @@ two trees can be compared in one call, each tree in its own process.
 
 ``--lm-sharded`` runs only phases 1, 2 and 16 (the build, then the lm
 sharded phase), to iterate on that phase alone; it prints no result.
+
+``--profile-attach`` runs only phases 1 and 2 and then phase 12's
+profile of the attachment kernel (one exact build at n = 10^6, then 20,
+under torch.profiler) in this fresh process; it prints no result.
 
 ``--time-overlap`` runs none of the above: it prints the overlap path's
 wall ms per window for Axelrod (F = 3) and SIRS (s = 50) at n = 10^6,
@@ -2119,20 +2125,40 @@ DES_AXELROD = {"n_agents": 10_000, "n_features": 500}
 #: rotate and a xor, five key injections of three adds, the key's parity
 #: word (two xors) and the first two adds
 HASH_OPS = 79
-#: ops of one rejection round: six hashes, the bits' two xors, three
-#: remainders (~15 ops each: a 32-bit division), a multiply and an add
+#: ops of one rejection round: six hashes (the round's key — the fold_in
+#: for the first, a split for the rest — its sub and randint's four), the
+#: bits' two xors, three remainders (~15 ops each: a 32-bit division), a
+#: multiply and an add
 ROUND_OPS = 6 * HASH_OPS + 2 + 3 * 15 + 2
-#: ops of an arrival besides its rounds: the fold_in and the multiplier's
-#: two remainders
-ARRIVAL_OPS = HASH_OPS + 2 * 15
-#: the serial path's dependent chain per round on one thread: three hashes
-#: one after another (each 20 steps of 3 dependent ops plus 5 injections
-#: of 2), the remainders (~3 x 15) and a load from L2, in cycles (~4 a
-#: dependent integer op, ~260 for the load), at the H100's 1.98 GHz
-LATENCY_ROUND_S = (3 * (20 * 3 + 5 * 2) * 4 + 3 * 15 * 4 + 260) / 1.98e9
-#: the sleep (~0.1 s at 1.98 GHz) that the timed attachment launches are
-#: enqueued behind: far above the host's dispatch of 245 launches
+#: ops of an arrival besides its rounds: the multiplier's two remainders
+ARRIVAL_OPS = 2 * 15
+#: the attachment kernel's critical path, in seconds at the H100's
+#: 1.98 GHz and ~4 cycles a dependent integer op: a Threefry hash's
+#: latency (20 steps of 3 dependent ops, 5 injections of 2)
+HASH_LATENCY_S = (20 * 3 + 5 * 2) * 4 / 1.98e9
+
+
+def draws_latency_s(m):
+    """One attachment thread's draws before its first lookup: the
+    fold_in, m hashes along the key chain, the last round's two dependent
+    pairs and its three remainders (~15 ops each)."""
+    return (1 + m + 2) * HASH_LATENCY_S + 3 * 15 * 4 / 1.98e9
+
+
+#: one dependent lookup: the owner's store reaching L2 and the waiter's
+#: poll reading it back (~300 cycles each way)
+LOOKUP_LATENCY_S = 2 * 300 / 1.98e9
+#: the sleep (~0.1 s at 1.98 GHz) that the timed attachment launch is
+#: enqueued behind: far above the host's dispatch of the build's ops
 ATTACH_SLEEP_CYCLES = 200_000_000
+#: timed builds of each attachment row (the median is its ms)
+ATTACH_TIMED = 5
+#: builds in the second profiled window of ``profile_attach``
+ATTACH_PROFILED = 20
+#: the H100 SXM's INT32 rate: 64 INT32 lanes an SM (NVIDIA's Hopper
+#: white paper), 132 SMs, the 1.98 GHz boost clock — the attachment
+#: kernel's hashes are adds, xors and shifts on those lanes
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def fenced_call(torch, fn):
@@ -2180,6 +2206,39 @@ def attach_device_ms(torch, fn):
     return [start.elapsed_time(end) for start, end in pairs]
 
 
+def profile_attach(torch, event_ms=None):
+    """Exact attachment builds at n = GEN_NODES under torch.profiler, one
+    and then ATTACH_PROFILED in a window: how many device events and
+    ``attach_kernel`` events it records and the kernel's device µs, beside
+    the CUDA events' ms where given (printed, not a gate; phase 12 and
+    ``--profile-attach``, which runs it alone in a fresh process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.topology.generators import attachment
+    from repro_torch.utils import prng
+
+    key = prng.key(SEED)
+    attachment(GEN_NODES, GEN_M, key, backend="cuda")
+    row = {"cuda_event_ms": event_ms}
+    for builds in (1, ATTACH_PROFILED):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(builds):
+                attachment(GEN_NODES, GEN_M, key, backend="cuda")
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and not e.is_user_annotation]
+        us = sorted(e.device_time for e in device
+                    if "attach_kernel" in e.name)
+        row[f"{builds} builds"] = {
+            "device_events": len(device), "attach_kernel_events": len(us),
+            "attach_kernel_us_min_median_max":
+            [us[0], us[len(us) // 2], us[-1]] if us else None}
+    log("attach under torch.profiler: " + json.dumps(row))
+
+
 def drive_generators(torch):
     """Phase 12 (a)-(b): the generators on the card — erdos_renyi(10^6,
     4/10^6) with connect_isolated, barabasi_albert(10^6, 2) exact and
@@ -2211,16 +2270,14 @@ def drive_generators(torch):
     graphs["erdos_renyi"] = topo
     builds["erdos_renyi"] = {"seconds": secs, "edges": int(topo.n_edges),
                              "max_degree": topo.max_degree}
-    arrivals = GEN_NODES - GEN_M - 1
     for name, chunk in (("barabasi_albert", None),
                         ("barabasi_albert chunk=4096", GEN_CHUNK)):
         attach_kernel.launches = 0
         topo, secs = fenced_call(torch, lambda: barabasi_albert(
             GEN_NODES, GEN_M, key, chunk=chunk))
         n = attach_kernel.launches
-        want = 1 if chunk is None else 1 + -(-(arrivals - chunk) // chunk)
-        if n != want:
-            fail(f"{name}: {n} attachment launches, expected {want}")
+        if n != 1:
+            fail(f"{name}: {n} attachment launches, expected 1")
         graphs[name] = topo
         builds[name] = {"seconds": secs, "edges": int(topo.n_edges),
                         "max_degree": topo.max_degree, "launches": n}
@@ -2240,6 +2297,7 @@ def drive_generators(torch):
                 torch, lambda: attachment(n, GEN_M, key, chunk=chunk,
                                           backend="torch"))
             rounds = attach_ref.rounds_drawn - before
+            depth = attach_ref.chain_depth
             if not (torch.equal(kernel, plain)
                     and torch.equal(kernel_ends, plain_ends)):
                 fail(f"attach kernel != plain version at n = {n}, chunk = "
@@ -2249,46 +2307,40 @@ def drive_generators(torch):
                 continue
             name = ("barabasi_albert" if chunk is None
                     else "barabasi_albert chunk=4096")
-            each = attach_device_ms(torch, lambda: attachment(
-                n, GEN_M, key, chunk=chunk, backend="cuda"))
-            launches = builds[name]["launches"]
-            if len(each) != launches:
-                fail(f"{name}: {len(each)} attachment launches timed, "
-                     f"the counter {launches}")
+            each = sorted(attach_device_ms(torch, lambda: [attachment(
+                n, GEN_M, key, chunk=chunk, backend="cuda")
+                for _ in range(ATTACH_TIMED)]))
+            if len(each) != ATTACH_TIMED:
+                fail(f"{name}: {len(each)} attachment launches timed in "
+                     f"{ATTACH_TIMED} builds")
             count = kernel.shape[0]
             # the key and the seed's ends read; every slab and target
             # written; the rounds this run's draws took
             nbytes = 16 + 4 * (GEN_M + 1) * GEN_M + 12 * GEN_M * count
             ops = ARRIVAL_OPS * count + ROUND_OPS * rounds
-            # per launch, as every row of the kernels line: the build's
-            # device time, bytes, operations and plain time over its
-            # launches (the chunked build's first launch is the serial
-            # warm-up of C arrivals, the rest one frozen block each)
             row = kernel_row(
                 "attach" if chunk is None else "attach chunk=4096",
                 "src/repro_torch/csrc/attach.cu",
                 "src/repro/topology/generators.py:216",
-                launches, 0, sum(each) / launches,
-                plain_s * 1e3 / launches, nbytes / launches,
-                ops / launches)
-            latency = (LATENCY_ROUND_S * rounds if chunk is None else None)
-            blocks = sorted(each[1:])
+                builds[name]["launches"], 0, each[len(each) // 2],
+                plain_s * 1e3, nbytes, ops)
+            # the design's own floor: the hashes (the row's bound) or the
+            # critical path, whichever is longer
+            path_ms = (draws_latency_s(GEN_M)
+                       + depth * LOOKUP_LATENCY_S) * 1e3
             log(f"kernel times {row['name']} n={n}: " + json.dumps(
-                {"ms_per_launch": row["ms"], "launches": launches,
-                 "device_ms_total": sum(each),
+                {"ms": row["ms"], "ms_min_max": [each[0], each[-1]],
+                 "launches": row["launches"],
                  "attachment_wall_ms": wall_s * 1e3,
-                 "warm_up_ms": None if chunk is None else each[0],
-                 "block_ms_median": blocks[len(blocks) // 2]
-                 if blocks else None,
-                 "block_ms_max": blocks[-1] if blocks else None,
-                 "plain_ms_per_launch": row["plain_ms"],
-                 "plain_ms_total": plain_s * 1e3, "arrivals": count,
+                 "plain_ms": row["plain_ms"], "arrivals": count,
                  "rounds": rounds, "rounds_per_arrival": rounds / count,
+                 "chain_depth": depth, "critical_path_model_ms": path_ms,
                  "bytes": nbytes, "ops": ops,
-                 "bound_ms_per_launch": row["bound_ms"],
-                 "bound_by": row["bound_by"],
-                 "serial_latency_ms": None if latency is None
-                 else latency * 1e3}))
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "design_bound_ms": max(row["bound_ms"], path_ms),
+                 "int32_rate_ms": ops / INT32_OPS_PER_S * 1e3}))
+            if chunk is None:
+                profile_attach(torch, row["ms"])
             rows.append(row)
         del kernel, kernel_ends
     torch.cuda.empty_cache()
@@ -4899,6 +4951,9 @@ def main(argv=None) -> None:
                              "SIRS (wall ms per window)")
     parser.add_argument("--lm-sharded", action="store_true",
                         help="only the lm sharded phase, after the build")
+    parser.add_argument("--profile-attach", action="store_true",
+                        help="only the attachment builds under "
+                             "torch.profiler, after the build")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory holding the repro_torch package "
                              "(--time-overlap, --time-kernels)")
@@ -4954,6 +5009,9 @@ def main(argv=None) -> None:
         log("lm sharded phase launches: "
             + json.dumps(drive_lm_sharded(torch)))
         log(f"lm sharded phase: {time.perf_counter() - t0:.1f} s")
+        return
+    if args.profile_attach:
+        profile_attach(torch)
         return
 
     t0 = time.perf_counter()

@@ -3,12 +3,12 @@
 
 Replaces no ``pallas_call``: it carries the reference's compiled
 ``lax.scan`` of arrivals (``repro/topology/generators.py:216-245``), which
-eager PyTorch cannot. One launch walks ``count`` arrivals: serially in one
-thread (each arrival draws from the multiset its predecessors grew), or,
-for a frozen block, one thread per arrival (see the source's note for the
-design and what bounds it). The key is read on the device, so a launch
-needs no host sync. ``launches`` counts the launches of this wrapper;
-nothing else changes it.
+eager PyTorch cannot. One launch resolves a whole build — the exact
+warm-up and every frozen block — with one thread per arrival, each
+waiting only for the earlier arrivals' targets it draws (see the
+source's note for the design and what bounds it). The key is read on the
+device, so a launch needs no host sync. ``launches`` counts the launches
+of this wrapper; nothing else changes it.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, check_tensor
+from repro_torch.kernels.attach.ref import blocks
 
 #: number of kernel launches made through ``attach_cuda``
 launches = 0
@@ -29,19 +30,21 @@ def _load():
     if _lib is None:
         lib = _build.load("attach")
         lib.attach_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p])
         lib.attach_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def attach_cuda(key: torch.Tensor, ends: torch.Tensor, *, first: int,
-                count: int, fill: int, m: int,
-                frozen: bool = False) -> torch.Tensor:
+                count: int, fill: int, m: int, warm: int | None = None,
+                block: int | None = None) -> torch.Tensor:
     """key int64 [2], ends int32 [cap] (written in place), both
-    contiguous on one CUDA device -> targets [count, m] int32."""
+    contiguous on one CUDA device -> targets [count, m] int32; ``warm``
+    and ``block`` as ``ops.attach_arrivals``."""
     global launches
     if ends.device.type != "cuda":
         raise ValueError("attach_cuda takes CUDA tensors; the plain version "
@@ -53,17 +56,19 @@ def attach_cuda(key: torch.Tensor, ends: torch.Tensor, *, first: int,
     check_tensor("ends", ends, torch.int32, tuple(ends.shape), dev)
     if count < 1 or m < 1 or fill < 1:
         raise ValueError(f"need count, m, fill >= 1: {count}, {m}, {fill}")
+    warm, block = blocks(count, warm, block)
     end = fill + 2 * m * count
     if end > ends.shape[0] or end >= 1 << 31 or first + count > 1 << 31:
         raise ValueError(f"{count} arrivals from fill {fill} need {end} "
                          f"slots (< 2^31), ends has {ends.shape[0]}")
     lib = _load()
     out = torch.empty((count, m), dtype=torch.int32, device=dev)
+    ticket = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed there
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.attach_launch(key.data_ptr(), ends.data_ptr(),
-                               out.data_ptr(), first, count, fill, m,
-                               int(frozen), stream)
+                               out.data_ptr(), ticket.data_ptr(), first,
+                               count, fill, m, warm, block, stream)
     if rc != 0:
         raise RuntimeError(f"attach kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -15,12 +15,16 @@ from repro_torch.kernels.attach.ref import attach_plain
 
 
 def attach_arrivals(key, ends, *, first: int, count: int, fill: int, m: int,
-           frozen: bool = False, backend: str | None = None) -> torch.Tensor:
-    """Targets [count, m] int32 of arrivals t = first .. first+count-1,
-    each drawing m distinct nodes from ``ends[:fill_t]`` — fill_t = fill +
-    2m·(t - first), or ``fill`` for all of them when ``frozen`` — with the
-    keys ``fold_in(key, t)``; each arrival's slab (its targets, then t
-    repeated m times) is written into ``ends`` at fill + 2m·(t - first).
+                    warm: int | None = None, block: int | None = None,
+                    backend: str | None = None) -> torch.Tensor:
+    """Targets [count, m] int32 of arrivals t = first .. first+count-1
+    (i = t - first), each drawing m distinct nodes from ``ends[:span_i]``
+    with the key ``fold_in(key, t)``: span_i = fill + 2m·i for the first
+    ``warm`` arrivals (default all: the exact build), then fill +
+    2m·(warm + block·⌊(i − warm)/block⌋), frozen blocks of ``block``
+    (default one block of the rest). Each arrival's slab (its targets,
+    then t repeated m times) is written into ``ends`` at fill + 2m·i.
+    A whole build, exact or chunked, is one call.
     """
     if ends.dtype != torch.int32 or ends.dim() != 1:
         raise ValueError("ends must be a 1-d int32 tensor")
@@ -31,8 +35,8 @@ def attach_arrivals(key, ends, *, first: int, count: int, fill: int, m: int,
         backend = "cuda" if use_kernel(ends) else "torch"
     if backend == "cuda":
         return attach_cuda(key, ends, first=first, count=count, fill=fill,
-                           m=m, frozen=frozen)
+                           m=m, warm=warm, block=block)
     if backend == "torch":
         return attach_plain(key, ends, first=first, count=count, fill=fill,
-                            m=m, frozen=frozen)
+                            m=m, warm=warm, block=block)
     raise ValueError(f"unknown attach backend {backend!r}")

@@ -3,7 +3,7 @@ algorithm over the same draws, so the two check each other.
 
 It pre-draws ``rounds`` rejection rounds for every arrival at once with
 the vectorized ``prng`` (each round's slot from ``randint(sub, (), 0,
-fill_i)`` along the chain ``kk, sub = split(kk)`` from ``fold_in(key,
+span_i)`` along the chain ``kk, sub = split(kk)`` from ``fold_in(key,
 t)``), gathers their candidates, then walks the arrivals in a host loop
 of integer lookups. An arrival that rejects every pre-drawn round
 continues its chain with a host mirror of the hash (``_draw``), as many
@@ -21,6 +21,22 @@ _M = prng.MASK
 #: rejection rounds the arrivals used, summed over every call (a
 #: diagnostic: the work the kernel does on the same draws)
 rounds_drawn = 0
+#: the longest chain of target-on-target lookups of the last call: an
+#: arrival that reads a target of an earlier arrival of the same call is
+#: one link past it (the kernel's critical path, in dependent lookups)
+chain_depth = 0
+
+
+def blocks(count: int, warm: int | None, block: int | None) -> tuple[int,
+                                                                    int]:
+    """(warm, block) of a call: ``warm`` exact arrivals (default all of
+    them), then frozen blocks of ``block`` (default one of the rest)."""
+    warm = count if warm is None else int(warm)
+    block = max(count - warm, 1) if block is None else int(block)
+    if not 0 <= warm <= count or block < 1:
+        raise ValueError(f"need 0 <= warm <= count and block >= 1: warm "
+                         f"{warm}, count {count}, block {block}")
+    return warm, block
 
 
 def _threefry(k1, k2, x1, x2):
@@ -54,18 +70,23 @@ def _draw(kk, span):
 
 
 def attach_plain(key: torch.Tensor, ends: torch.Tensor, *, first: int,
-                 count: int, fill: int, m: int, frozen: bool = False,
+                 count: int, fill: int, m: int, warm: int | None = None,
+                 block: int | None = None,
                  rounds: int | None = None) -> torch.Tensor:
     """The kernel's function on any device: writes the arrivals' slabs
-    into ``ends`` and returns targets [count, m] int32. ``rounds`` rounds
-    are pre-drawn per arrival (default m + 2), and their candidates
-    gathered from ``ends`` as it stands; a candidate in a slab this call
-    writes (serial arrivals only) is read from the slabs on the host."""
-    global rounds_drawn
+    into ``ends`` and returns targets [count, m] int32. Arrival i draws
+    from ``ends[:span_i]``: span_i = fill + 2m·i for i < warm, then fill +
+    2m·(warm + block·⌊(i − warm)/block⌋) (see ``blocks``). ``rounds``
+    rounds are pre-drawn per arrival (default m + 2), and their
+    candidates gathered from ``ends`` as it stands; a candidate in a slab
+    this call writes is read from the slabs on the host."""
+    global rounds_drawn, chain_depth
+    warm, block = blocks(count, warm, block)
     dev = ends.device
     rounds = m + 2 if rounds is None else int(rounds)
     i = torch.arange(count, dtype=torch.int64, device=dev)
-    fills = torch.full_like(i, fill) if frozen else fill + 2 * m * i
+    at = torch.where(i < warm, i, warm + block * ((i - warm) // block))
+    fills = fill + 2 * m * at
     kk = prng.fold_in(key.to(dev), first + i)                  # [A, 2]
     subs = []
     for _ in range(rounds):
@@ -81,9 +102,10 @@ def attach_plain(key: torch.Tensor, ends: torch.Tensor, *, first: int,
     chain = kk.cpu().tolist()          # each arrival's key after the rounds
     spans = fills.cpu().tolist()
     slabs = []                         # what this call writes from fill on
+    depth = [0] * count                # links of each arrival's chain
     out = np.empty((count, m), dtype=np.int32)
     for a in range(count):
-        span, sel = spans[a], []
+        span, sel, d = spans[a], [], 0
         r = 0
         while len(sel) < m:
             if r < rounds:
@@ -93,11 +115,16 @@ def attach_plain(key: torch.Tensor, ends: torch.Tensor, *, first: int,
                 cand = None if slot >= fill else int(ends[slot])
             r += 1
             if slot >= fill:
-                cand = slabs[slot - fill]
+                p = slot - fill
+                cand = slabs[p]
+                if p % (2 * m) < m:    # a target, not the source t
+                    d = max(d, depth[p // (2 * m)] + 1)
             if cand not in sel:
                 sel.append(cand)
         rounds_drawn += r
+        depth[a] = d
         slabs += sel + [first + a] * m
         out[a] = sel
+    chain_depth = max(depth, default=0)
     ends[fill:fill + 2 * m * count] = torch.tensor(slabs, dtype=torch.int32)
     return torch.from_numpy(out).to(dev)

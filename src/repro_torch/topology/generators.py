@@ -179,10 +179,10 @@ def barabasi_albert(n: int, m: int, key: torch.Tensor, *,
     degree, duplicates rejected), its draws keyed by ``fold_in(key, t)``.
 
     ``chunk=None`` is the exact sequential realization: the multiset grows
-    after every arrival (one thread of the attachment kernel walks the
-    arrivals on the card). ``chunk=C`` freezes the multiset per block of C
-    arrivals after an exact warm-up of the first C; a block's arrivals
-    draw in parallel (one launch per block). The last block may hold
+    after every arrival. ``chunk=C`` freezes the multiset per block of C
+    arrivals after an exact warm-up of the first C. Either is one launch
+    of the attachment kernel on the card, which resolves each arrival as
+    soon as the earlier targets it drew are known. The last block may hold
     phantom arrivals (t >= n): they draw and write slab entries past the
     fill that are never read, and their edges are dropped. ``chunk=1``
     equals ``chunk=None``.
@@ -225,19 +225,14 @@ def attachment(n: int, m: int, key: torch.Tensor, *,
         warm = min(n_arrivals, c)
         n_blocks = -(-(n_arrivals - warm) // c)
     # endpoint slots: the padded capacity holds the phantom arrivals' slabs
-    cap = n_seed_ends + 2 * m * (warm + n_blocks * c)
-    ends = torch.zeros(cap, dtype=torch.int32, device=dev)
+    count = warm + n_blocks * c
+    ends = torch.zeros(n_seed_ends + 2 * m * count, dtype=torch.int32,
+                       device=dev)
     ends[:n_seed_ends] = torch.cat([si, sj])
-    fill = n_seed_ends
-    tgts = [attach_arrivals(key, ends, first=seed_sz, count=warm, fill=fill,
-                            m=m, backend=backend)]
-    fill += 2 * m * warm
-    for blk in range(n_blocks):
-        tgts.append(attach_arrivals(key, ends, first=seed_sz + warm + blk * c,
-                                    count=c, fill=fill, m=m, frozen=True,
-                                    backend=backend))
-        fill += 2 * m * c
-    return torch.cat(tgts), ends
+    tgts = attach_arrivals(key, ends, first=seed_sz, count=count,
+                           fill=n_seed_ends, m=m, warm=warm, block=c,
+                           backend=backend)
+    return tgts, ends
 
 
 def complete(n: int, *, device=None) -> Topology:

@@ -852,51 +852,106 @@ def test_sharded_world_of_one_on_card_equals_wavefront(cuda_device, engine):
 
 
 # ------------------------------------------------- the attachment kernel
-def _grown_ends(m, arrivals, device):
-    """A multiset after a seed clique and ``arrivals`` serial arrivals
-    (the plain version on the CPU), with room for 600 more."""
+def _grown_ends(m, arrivals, device, room=600):
+    """A multiset after a seed clique and ``arrivals`` exact arrivals
+    (the plain version on the CPU), with room for ``room`` more."""
     seed = torch.triu_indices(m + 1, m + 1, 1)
     fill = (m + 1) * m
-    ends = torch.zeros(fill + 2 * m * (arrivals + 600), dtype=torch.int32)
+    ends = torch.zeros(fill + 2 * m * (arrivals + room), dtype=torch.int32)
     ends[:fill] = torch.cat([seed[0], seed[1]])
     attach_arrivals(prng.key(2, device="cpu"), ends, first=m + 1,
                     count=arrivals, fill=fill, m=m)
     return ends.to(device), fill + 2 * m * arrivals, m + 1 + arrivals
 
 
-@pytest.mark.parametrize("frozen", [False, True])
-@pytest.mark.parametrize("m", [1, 2, 3, 9])
-def test_attach_kernel_matches_plain(cuda_device, m, frozen):
-    """600 arrivals after 300, serial or as one frozen block: the targets
-    and the whole multiset equal the plain version's (m = 9: each
-    candidate checked against up to eight kept targets)."""
-    ends, fill, first = _grown_ends(m, 300, cuda_device)
-    key = prng.key(4, device=cuda_device)
-    plain_ends = ends.clone()
+#: (warm, block) of one call: exact, one frozen block, an exact warm-up
+#: then frozen blocks (600 arrivals: 100 + 7 blocks of 64 + 52 of an 8th)
+ATTACH_MODES = {"exact": (None, None), "frozen": (0, None),
+                "chunked": (100, 64)}
+
+
+def _attach_both(key, ends, first, count, fill, m, mode="exact"):
+    """(kernel's targets, its multiset, plain targets, plain multiset) of
+    one call on copies of ``ends``; the kernel's is one launch."""
+    warm, block = ATTACH_MODES[mode]
+    got_ends, want_ends = ends.clone(), ends.clone()
     before = attach_kernel.launches
-    got = attach_arrivals(key, ends, first=first, count=600, fill=fill,
-                          m=m, frozen=frozen, backend="cuda")
+    got = attach_arrivals(key, got_ends, first=first, count=count,
+                          fill=fill, m=m, warm=warm, block=block,
+                          backend="cuda")
     assert attach_kernel.launches == before + 1
-    want = attach_arrivals(key, plain_ends, first=first, count=600,
-                           fill=fill, m=m, frozen=frozen, backend="torch")
+    want = attach_arrivals(key, want_ends, first=first, count=count,
+                           fill=fill, m=m, warm=warm, block=block,
+                           backend="torch")
     assert attach_kernel.launches == before + 1
+    return got, got_ends, want, want_ends
+
+
+@pytest.mark.parametrize("mode", list(ATTACH_MODES))
+@pytest.mark.parametrize("m", [1, 2, 3, 9])
+def test_attach_kernel_matches_plain(cuda_device, m, mode):
+    """600 arrivals after 300 in one launch — exact, one frozen block, or
+    a warm-up and frozen blocks: the targets and the whole multiset equal
+    the plain version's (m = 9: each candidate checked against up to
+    eight kept targets)."""
+    ends, fill, first = _grown_ends(m, 300, cuda_device)
+    got, got_ends, want, want_ends = _attach_both(
+        prng.key(4, device=cuda_device), ends, first, 600, fill, m, mode)
     assert torch.equal(got, want)
-    assert torch.equal(ends, plain_ends)
+    assert torch.equal(got_ends, want_ends)
+
+
+@pytest.mark.parametrize("mode", ["exact", "chunked"])
+@pytest.mark.parametrize("m,count", [(1, 5000), (2, 5000), (9, 2000)])
+def test_attach_kernel_right_after_the_seed(cuda_device, m, count, mode):
+    """Arrivals straight after the seed clique: at m = 1 consecutive
+    arrivals of one warp draw each other's targets (deep chains inside a
+    warp), at m = 9 the first arrivals reject most draws (ten nodes for
+    nine distinct targets)."""
+    ends, fill, first = _grown_ends(m, 0, cuda_device, room=count)
+    got, got_ends, want, want_ends = _attach_both(
+        prng.key(6, device=cuda_device), ends, first, count, fill, m, mode)
+    assert torch.equal(got, want)
+    assert torch.equal(got_ends, want_ends)
+
+
+@pytest.mark.parametrize("count", [1, 31, 127, 129, 1000])
+def test_attach_kernel_ragged_counts(cuda_device, count):
+    """Counts that are not a multiple of the kernel's 128 threads a
+    block."""
+    ends, fill, first = _grown_ends(2, 50, cuda_device, room=count)
+    got, got_ends, want, want_ends = _attach_both(
+        prng.key(8, device=cuda_device), ends, first, count, fill, 2)
+    assert torch.equal(got, want)
+    assert torch.equal(got_ends, want_ends)
+
+
+def test_attach_kernel_repeated_launches_agree(cuda_device):
+    """The same launch 20 times on fresh copies, each bit for bit the
+    plain version's: a race between a target's store and its waiter's
+    poll would show as a run that differs."""
+    m, count = 1, 20000
+    ends, fill, first = _grown_ends(m, 0, cuda_device, room=count)
+    key = prng.key(9, device=cuda_device)
+    _, _, want, want_ends = _attach_both(key, ends, first, count, fill, m)
+    for _ in range(20):
+        got_ends = ends.clone()
+        got = attach_arrivals(key, got_ends, first=first, count=count,
+                              fill=fill, m=m, backend="cuda")
+        assert torch.equal(got, want)
+        assert torch.equal(got_ends, want_ends)
 
 
 @pytest.mark.parametrize("m", [1, 2, 3])
 @pytest.mark.parametrize("n,chunk", [(30, None), (2000, None), (2000, 16),
                                      (2000, 64), (20000, 1024)])
 def test_barabasi_albert_on_card_equals_cpu(cuda_device, n, m, chunk):
-    """The exact build is one launch; the chunked one a launch for the
-    warm-up and one per block (the last with phantom arrivals)."""
+    """A build, exact or chunked (the last block with phantom arrivals),
+    is one launch."""
     key = prng.key(5, device=cuda_device)
     before = attach_kernel.launches
     card = barabasi_albert(n, m, key, chunk=chunk)
-    arrivals = n - m - 1
-    blocks = 0 if chunk is None else -(-(arrivals - min(arrivals, chunk))
-                                       // chunk)
-    assert attach_kernel.launches == before + 1 + blocks
+    assert attach_kernel.launches == before + 1
     cpu = barabasi_albert(n, m, key.cpu(), chunk=chunk, device="cpu")
     assert torch.equal(card.neighbors.cpu(), cpu.neighbors)
     assert torch.equal(card.degrees.cpu(), cpu.degrees)
@@ -921,6 +976,10 @@ def test_attach_kernel_refuses_what_it_does_not_take(cuda_device):
         attach_cuda(key, ends.long(), first=3, count=1, fill=6, m=2)
     with pytest.raises(ValueError):
         attach_cuda(key.cpu(), ends, first=3, count=1, fill=6, m=2)
+    for warm, block in ((-1, None), (2, None), (0, 0)):
+        with pytest.raises(ValueError, match="warm"):
+            attach_cuda(key, ends, first=3, count=1, fill=6, m=2,
+                        warm=warm, block=block)
 
 
 # -------------------------------------------------------------- training

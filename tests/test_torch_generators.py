@@ -22,7 +22,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro import topology as R  # noqa: E402
 from repro_torch import topology as T  # noqa: E402
 from repro_torch.kernels.attach import ops as attach_ops  # noqa: E402
+from repro_torch.kernels.attach import ref as attach_ref  # noqa: E402
 from repro_torch.kernels.attach.ref import attach_plain  # noqa: E402
+from repro_torch.topology.generators import attachment  # noqa: E402
 from repro_torch.utils import prng  # noqa: E402
 
 CPU = "cpu"
@@ -193,10 +195,88 @@ def test_attach_plain_writes_the_slabs():
     assert ends[10:14].tolist() == out[1].tolist() + [4, 4]
     assert all(len(set(r)) == m for r in out.tolist())
     frozen = attach_plain(key, ends, first=5, count=3, fill=14, m=m,
-                          frozen=True)
+                          warm=0)
     assert set(frozen.reshape(-1).tolist()) <= set(ends[:14].tolist())
     assert ends[14:26].reshape(3, 4)[:, 2:].tolist() == [[5, 5], [6, 6],
                                                           [7, 7]]
+
+
+def _attachment_by_calls(n, m, key, chunk, piece=37):
+    """``attachment`` as calls of their own: the exact warm-up in pieces
+    of ``piece`` arrivals, then each frozen block."""
+    seed_sz, arrivals = m + 1, n - m - 1
+    warm = arrivals if chunk is None else min(arrivals, chunk)
+    c = 1 if chunk is None else chunk
+    count = warm + -(-(arrivals - warm) // c) * c
+    si, sj = torch.triu_indices(seed_sz, seed_sz, 1)
+    fill = seed_sz * m
+    ends = torch.zeros(fill + 2 * m * count, dtype=torch.int32)
+    ends[:fill] = torch.cat([si, sj])
+    calls = [(a, min(piece, warm - a), None) for a in range(0, warm, piece)]
+    calls += [(a, c, 0) for a in range(warm, count, c)]
+    tgts = [attach_plain(key, ends, first=seed_sz + a, count=k,
+                         fill=fill + 2 * m * a, m=m, warm=w)
+            for a, k, w in calls]
+    return torch.cat(tgts), ends
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("n,chunk", [(60, None), (60, 1), (300, 16),
+                                     (1100, 1024)])
+def test_attach_one_call_equals_calls_per_block(n, m, chunk):
+    """One call for a whole build (the exact warm-up, then frozen blocks,
+    the last with phantom arrivals at n = 300 and 1100) equals the warm-up and
+    each block as calls of their own: targets and the whole multiset."""
+    key = prng.key(7, device=CPU)
+    before = attach_ref.rounds_drawn
+    tgts, ends = attachment(n, m, key, chunk=chunk)
+    one = attach_ref.rounds_drawn - before
+    want, want_ends = _attachment_by_calls(n, m, key, chunk)
+    assert torch.equal(tgts, want)
+    assert torch.equal(ends, want_ends)
+    assert attach_ref.rounds_drawn - before == 2 * one
+    assert tgts.shape[0] >= n - m - 1
+
+
+def _first_slots(key, spans):
+    """Each arrival's first-round slot (t = 2, 3, ...), drawn by hand:
+    ``randint(split(fold_in(key, t))[1], (), 0, span)``."""
+    return [int(prng.randint(prng.split(prng.fold_in(key, torch.tensor(
+        2 + a)))[1], (), 0, span)) for a, span in enumerate(spans)]
+
+
+@pytest.mark.parametrize("seed,warm,want", [(2, None, 2), (14, None, 1),
+                                            (6, None, 0), (33, 1, 1)])
+def test_attach_plain_chain_depth(seed, warm, want):
+    """Three arrivals of m = 1 after the seed pair (fill 2): each keeps its
+    first draw, so the slots say the chain. Slots 2 and 4 are arrival 0's
+    and 1's targets (a link each), 3 and 5 their sources (none). Seed 2
+    draws 1, 2, 4: arrival 2 reads arrival 1's target, which is arrival
+    0's: two links. Seed 14 draws 0, 2, 3: one; seed 6 0, 1, 3: none.
+    With warm 1 (then one frozen block of two) arrival 2 draws below slot
+    4: seed 33 draws 1, 2, 2, both later arrivals read arrival 0's
+    target: one link."""
+    key = prng.key(seed, device=CPU)
+    spans = [2, 4, 6] if warm is None else [2, 4, 4]
+    slots = _first_slots(key, spans)
+    ends = torch.zeros(8, dtype=torch.int32)
+    ends[1] = 1
+    out = attach_plain(key, ends, first=2, count=3, fill=2, m=1, warm=warm)
+    assert attach_ref.chain_depth == want
+    assert slots == {2: [1, 2, 4], 14: [0, 2, 3], 6: [0, 1, 3],
+                     33: [1, 2, 2]}[seed]
+    if seed in (2, 33):
+        assert out[:, 0].tolist() == [1, 1, 1]   # each took arrival 0's
+    assert ends[2:].tolist() == [v for a, r in enumerate(out.tolist())
+                                 for v in (r[0], 2 + a)]
+
+
+def test_attach_blocks_refused():
+    key, ends = prng.key(0, device=CPU), torch.zeros(20, dtype=torch.int32)
+    for warm, block in ((-1, None), (5, None), (0, 0)):
+        with pytest.raises(ValueError):
+            attach_plain(key, ends, first=3, count=4, fill=2, m=1,
+                         warm=warm, block=block)
 
 
 def test_generator_arguments_refused():
