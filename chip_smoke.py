@@ -73,7 +73,7 @@ failure:
      others bit for bit as they were;
   4. drives the barrier path — ``run_engine(engine="wavefront")`` on voter
      and SIS over ``watts_strogatz(n=1_000_000, k=10, beta=0.1)`` built
-     on the card, W = 4096, 2^20 tasks each (``--tasks`` cuts the task
+     on the card, W = 4096, 2^19 tasks each (``--tasks`` cuts the task
      count of both paths, never n or W) — with the kernel launch
      counters set to 0 just before each model's run and read just
      after; each kernel must have launched once per window. Then, on
@@ -84,7 +84,7 @@ failure:
      levels and waves (host clock, each step fenced by a synchronize),
      and profiles 16 more (torch.profiler) for the device's busy share;
   6. drives the overlap path — ``run_engine(engine="wavefront_overlap")``
-     at W = 4096 and 2^20 tasks on four models built on the
+     at W = 4096 and 2^19 tasks on four models built on the
      card: voter and SIS on the graph above, Axelrod (n = 10^6, F = 3,
      q = 3, omega = 0.95, complete mixing) and SIRS (n = 10^6 on the ring
      of degree 14, subsets of 50). The counters are set to 0 before each
@@ -128,8 +128,9 @@ failure:
  11. the sharded engines (``torch.distributed``): (a) at world size 1
      under NCCL (a one-rank default group on a FileStore under build/),
      ``sharded`` and ``sharded_overlap`` on SIS (the graph above) and
-     SIRS (the phase-6 ring, s = 50) at n = 10^6, W = 4096 and 2^19 tasks
-     (2^20 before the lm sharded phase came; ``--tasks`` cuts it), each
+     SIRS (the phase-6 ring, s = 50) at n = 10^6, W = 4096 and 2^18 tasks
+     (2^20 before the lm sharded phase came, 2^19 before the cost phase;
+     ``--tasks`` cuts it), each
      against ``wavefront`` /
      ``wavefront_overlap`` on the card with the same seed and window:
      the final state bit for bit, the schedule stats equal, conflict and
@@ -313,7 +314,31 @@ failure:
      computes the recurrence), bound by max(bytes / 3.35 TB/s, flops /
      67 TFLOP/s, the float32 CUDA-core rate). The kernels line lists
      all eight kernels, SIRS at both subset sizes and the attachment
-     kernel exact and chunked (phase 12's times).
+     kernel exact and chunked (phase 12's times);
+ 18. the cost phase (``repro_torch.obs.costs``), in four parts run
+     where their inputs are: (a) after phase 7, ``compiled_costs`` of
+     ``wavefront`` on phase 7's Axelrod (F = 500) and SIRS (s = 1000)
+     models at n = 10^6, W = 4096 — one window's schedule through the
+     conflict and levels kernels, its executor run once on clones
+     through the wave kernel: the wave kernel's reported launches, and
+     its counter, equal to the window's waves (``levels.max() + 1``),
+     its reported bytes and operations equal to the waves times its
+     ``work()`` on the same inputs, the caller's state bit for bit
+     unchanged; prints ``as_row()``, the allocator's peak over the call
+     and the seconds; (b) in phase 11, ``ledger_cross_check`` of
+     ``sharded`` and ``sharded_window_halo`` on SIS and SIRS for 8
+     windows at world size 1 under NCCL, and on each of the four gloo
+     ranks for every model: exact (``rtol = 0``), the ratio printed;
+     (c) in phase 9, no cost recorder installed while the host syncs are
+     counted (the count and its cap as before); (d) started before phase
+     3 and waited for after it (phase 3 is untimed, so no timed phase
+     shares the host's CPU with them), the dry run's collectives for two
+     cells in processes of their own, smollm-360m ``train_4k`` and
+     qwen3-moe-235b-a22b ``train_4k`` on the single-pod mesh (rank 0's
+     step on the meta device over a fake process group of 256 ranks,
+     every layer, the first microbatch standing for the others): each
+     ``ok`` with non-null collectives, its totals printed; the other 78
+     cells stay placement-only (phase 16).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -374,7 +399,7 @@ N_NODES = 1_000_000
 DEGREE = 10
 REWIRE = 0.1
 WINDOW = 4096
-TOTAL_TASKS = 1 << 20
+TOTAL_TASKS = 1 << 19
 CHECK_WINDOWS = 8
 SEED = 0
 DEVICE = "cuda"
@@ -1273,6 +1298,125 @@ def drive_task_size(torch, total_tasks):
     return results, launches, kept
 
 
+def drive_costs(torch, wide):
+    """Phase 18 (a): ``compiled_costs`` of ``wavefront`` on the task-size
+    phase's models (Axelrod F = 500, SIRS s = 1000; n = 10^6, W = 4096):
+    the wave kernel's reported launches and counter against the window's
+    waves, its reported work against ``work()`` on the same inputs, the
+    caller's state unchanged; prints ``as_row()`` and the allocator's
+    peak."""
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.axelrod import axelrod as axelrod_kernel
+    from repro_torch.kernels.axelrod.ops import work as axelrod_work
+    from repro_torch.kernels.sir import sir as sir_kernel
+    from repro_torch.kernels.sir.ops import work as sir_work
+    from repro_torch.utils import prng
+
+    for name, (model, state0) in wide.items():
+        eng = make_engine("wavefront", model, window=WINDOW)
+        _, _, levels = eng._schedule(prng.key(SEED), 0, WINDOW)
+        waves = int(levels.max()) + 1
+        if name.startswith("axelrod"):
+            kname, kernel = "axelrod_wave", axelrod_kernel
+            one = axelrod_work(WINDOW, model.cfg.n_features)
+        else:
+            kname, kernel = "sir_wave", sir_kernel
+            rec = model.create_tasks(prng.key(SEED), 0, WINDOW)
+            one = sir_work(rec["subset"], n_agents=model.cfg.n_agents,
+                           k=model.topology.ring_k,
+                           subset_size=model.cfg.subset_size)
+            del rec
+        before = {k: v.clone() for k, v in state0.items()}
+        kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costs = eng.compiled_costs(state0, seed=SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        (cost,) = costs.values()
+        want = {kname: {"launches": waves, "bytes": waves * one[0],
+                        "ops": waves * one[1]}}
+        if cost.kernels != want or kernel.launches != waves:
+            fail(f"costs {name}: the kernels reported {cost.kernels} "
+                 f"({kernel.launches} counted), the window's {waves} waves "
+                 f"of work() make {want}")
+        if not states_equal(state0, before):
+            fail(f"costs {name}: compiled_costs changed the caller's state")
+        del before
+        log(f"costs wavefront {name} W={WINDOW}: " + json.dumps(
+            {**cost.as_row(), "kernels": cost.kernels, "waves": waves,
+             "device_peak_bytes": cost.device_peak_bytes,
+             "seconds": secs}))
+
+
+#: the dry run's cells whose collectives the cost phase counts
+DRYRUN_CELLS = (("smollm-360m", "train_4k"),
+                ("qwen3-moe-235b-a22b", "train_4k"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun_cells(src):
+    """Phase 18 (d): start the dry run of each ``DRYRUN_CELLS`` cell on
+    the single-pod mesh, collectives counted, flops not, in a process of
+    its own (each makes itself rank 0 of a fake world of 256). Returns
+    (processes, output directory, start time)."""
+    import os
+
+    out = ROOT / "build" / "dryrun_costs"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.iterdir():
+        f.unlink()
+    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log_f = open(out / f"{arch}__{shape}.log", "w")
+        procs.append((arch, shape, log_f, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--no-flops",
+             "--out", str(out)], env=env, stdout=log_f,
+            stderr=subprocess.STDOUT)))
+    return procs, out, time.perf_counter()
+
+
+def check_dryrun_cells(procs, out, t0) -> None:
+    """Phase 18 (d): wait for the dry-run cells; each must be ``ok`` with
+    non-null collectives. Prints their collectives and bytes accessed."""
+    try:
+        for arch, shape, log_f, p in procs:
+            try:
+                p.wait(max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"dry run {arch} {shape}: not done in "
+                     f"{DRYRUN_TIMEOUT_S} s")
+            log_f.close()
+            path = out / f"{arch}__{shape}__single.json"
+            if p.returncode != 0 or not path.exists():
+                fail(f"dry run {arch} {shape} exited {p.returncode}: "
+                     + (out / f"{arch}__{shape}.log").read_text()[-3000:])
+            rec = json.loads(path.read_text())
+            if rec.get("status") != "ok" or rec.get("collectives") is None:
+                fail(f"dry run {arch} {shape}: {rec.get('status')}, "
+                     f"collectives {rec.get('collectives')}: "
+                     f"{rec.get('not_measured')}")
+            log(f"dry run collectives {arch} {shape} single: " + json.dumps(
+                {"collectives": rec["collectives"],
+                 "bytes_accessed": rec["cost_analysis"]["bytes_accessed"],
+                 "microbatches": rec.get("microbatches"),
+                 "argument_bytes": rec["memory"]["argument_bytes"],
+                 "collectives_s": rec["collectives_s"]}))
+    finally:
+        stop_dryrun_cells(procs)
+
+
+def stop_dryrun_cells(procs) -> None:
+    """Kill the dry-run cells still running and close their logs."""
+    for _, _, log_f, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(10)
+        log_f.close()
+
+
 def span_split(events, n_windows):
     """ms per window of each B/E span name on the windows thread."""
     from collections import defaultdict
@@ -1402,6 +1546,7 @@ def time_kernels(torch):
     from repro_torch.kernels.levels.ops import wave_levels
     from repro_torch.kernels.sir.ops import sir_wave
     from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import work as wkv6_work
     from repro_torch.mabs import SIRConfig, SIRModel, SISModel, VoterModel
     from repro_torch.topology import watts_strogatz
     from repro_torch.utils import prng
@@ -1494,7 +1639,7 @@ def time_kernels(torch):
                                   "spread", s0)
         row[f"wkv6_{name}_ms"] = cuda_event_ms(
             lambda: wkv6(*args, s0=state))
-        row[f"wkv6_{name}_bound_ms"] = bound_ms(*wkv6_cost(b, h, t, d,
+        row[f"wkv6_{name}_bound_ms"] = bound_ms(*wkv6_work(b, h, t, d,
                                                            s0))[0]
     # SIRS on the first wave's inputs of a real window at s = 50 (the
     # overlap path's) and s = 1000 (the task-size phase's)
@@ -1627,21 +1772,6 @@ def window_footprints(model, first=0):
     return tuple(x.contiguous() for x in model.task_footprint(recipes))
 
 
-def conflict_cost(sides, out):
-    """(bytes, operations) the conflict kernels need on these inputs:
-    every id slot and validity byte of each side in `sides` ((reads,
-    writes, valid); one side for the prefix matrix, two for the block) and
-    every byte of the output `out`, once each; one operation per used slot
-    of a valid task (its lookup or insert) and one per cell set. A join
-    compares no slots that share no id."""
-    nbytes, ops = out.numel(), float(out.sum())
-    for reads, writes, valid in sides:
-        nbytes += 4 * (reads.numel() + writes.numel()) + valid.numel()
-        ops += float(((reads >= 0).sum(1) + (writes >= 0).sum(1))[valid]
-                     .sum())
-    return nbytes, ops
-
-
 def bound_ms(nbytes, ops, ops_per_s=CUDA_CORE_OPS_PER_S):
     """(max(bytes / HBM rate, ops / ops_per_s) in ms, which bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
@@ -1680,6 +1810,7 @@ def drive_wide_sis(torch, label, topo, n_edges, build_s):
         conflict_block,
         conflict_matrix,
     )
+    from repro_torch.kernels.conflict.ops import work as conflict_cost
     from repro_torch.kernels.levels import levels as levels_kernel
     from repro_torch.mabs import SISModel
     from repro_torch.utils import prng
@@ -1793,7 +1924,7 @@ def drive_big_window(torch, models):
 
 # ------------------------------------------------------- the sharded phase
 #: (a): tasks of each world-1 NCCL run; (b): windows of each four-rank run
-SHARDED_TASKS = 1 << 19
+SHARDED_TASKS = 1 << 18
 SHARDED_RANKS = 4
 SHARDED_RANK_WINDOWS = 8
 SHARDED_RANK_TIMEOUT_S = 400
@@ -1904,9 +2035,43 @@ def drive_sharded_nccl(torch, models, total_tasks):
         if worst > OVERLAP_SYNCS_MAX:
             fail(f"sharded_overlap syncs the host {worst} times per window, "
                  f"more than {OVERLAP_SYNCS_MAX}")
+        checks = {}
+        for name, model in sync_models.items():
+            state0 = model.init_state(prng.key(SEED + 1))
+            for engine in COST_ENGINES:
+                eng = make_engine(engine, model, window=WINDOW)
+                _, stats = eng.run(state0, CHECK_WINDOWS * WINDOW,
+                                   seed=SEED)
+                checks[f"{engine} {name}"] = cross_check(eng, state0,
+                                                         stats)
+        for what, chk in checks.items():
+            if not chk["ok"]:
+                fail(f"cost cross-check world 1 nccl {what}: {chk}")
+        log("cost cross-check world 1 nccl (8 windows): "
+            + json.dumps(checks))
     finally:
         dist.destroy_process_group()
     return launches
+
+
+#: the barrier engines whose executor costs the cross-check reads
+COST_ENGINES = ("sharded", "sharded_window_halo")
+
+
+def cross_check(eng, state0, stats) -> dict:
+    """Just after ``eng``'s run that gave ``stats``: the executed
+    iteration counts, then ``compiled_costs`` (which re-prepares the
+    state) and the reference's identity against ``comm_bytes_total``,
+    exact."""
+    from repro_torch.obs.costs import ledger_cross_check
+
+    iters = eng.comm_iteration_counts(stats)
+    costs = eng.compiled_costs(state0, seed=SEED)
+    chk = ledger_cross_check(costs, iters, stats["comm_bytes_total"])
+    return {"executors": sorted(costs), "iters": iters,
+            "parsed_bytes": chk.parsed_bytes,
+            "ledger_bytes": chk.ledger_bytes, "ratio": chk.ratio,
+            "ok": chk.ok}
 
 
 def sharded_breakdown(torch, models, n_windows: int = 16):
@@ -2040,6 +2205,9 @@ def _sharded_rank_runs(torch, tasks):
                 "collectives": eng.agents.collectives,
                 "world_size": eng.agents.world_size,
                 "seconds": time.perf_counter() - t0}
+            if engine in COST_ENGINES:
+                res[name][engine]["cross_check"] = cross_check(
+                    eng, state0, stats)
     return res
 
 
@@ -2098,11 +2266,18 @@ def drive_sharded_ranks(torch, tasks):
                     fail(f"{what}: the call sites counted "
                          f"{got['comm_bytes']} bytes, the stats say "
                          f"{got['stats']['comm_bytes_total']}")
+                chk = got.get("cross_check")
+                if engine in COST_ENGINES and not (chk and chk["ok"]):
+                    fail(f"{what}: cost cross-check {chk}")
             ladder[engine] = {
                 **{k: res["stats"][k] for k in LADDER_KEYS},
                 "total_waves": res["stats"]["total_waves"],
                 "collectives": res["collectives"],
                 "seconds": max(rr[name][engine]["seconds"] for rr in ranks)}
+            if engine in COST_ENGINES:
+                ladder[engine]["cross_check_ratio"] = [
+                    rr[name][engine]["cross_check"]["ratio"]
+                    for rr in ranks]
         log(f"sharded {SHARDED_RANKS} ranks gloo {name} ({tasks} tasks): "
             + json.dumps(ladder))
 
@@ -2121,17 +2296,6 @@ BENCH_TOPOLOGY_NOTE = {"barabasi_albert": {"n_edges": 1999997,
 DES_TASKS = 2000
 DES_WORKERS = (1, 4)
 DES_AXELROD = {"n_agents": 10_000, "n_features": 500}
-#: ops of one Threefry-2x32 hash on the card: 20 mixing steps of an add, a
-#: rotate and a xor, five key injections of three adds, the key's parity
-#: word (two xors) and the first two adds
-HASH_OPS = 79
-#: ops of one rejection round: six hashes (the round's key — the fold_in
-#: for the first, a split for the rest — its sub and randint's four), the
-#: bits' two xors, three remainders (~15 ops each: a 32-bit division), a
-#: multiply and an add
-ROUND_OPS = 6 * HASH_OPS + 2 + 3 * 15 + 2
-#: ops of an arrival besides its rounds: the multiplier's two remainders
-ARRIVAL_OPS = 2 * 15
 #: the attachment kernel's critical path, in seconds at the H100's
 #: 1.98 GHz and ~4 cycles a dependent integer op: a Threefry hash's
 #: latency (20 steps of 3 dependent ops, 5 injections of 2)
@@ -2249,6 +2413,7 @@ def drive_generators(torch):
     graph, its build row, the kernel's attach rows)."""
     from repro_torch.kernels.attach import attach as attach_kernel
     from repro_torch.kernels.attach import ref as attach_ref
+    from repro_torch.kernels.attach.ops import work as attach_work
     from repro_torch.topology import (
         barabasi_albert,
         connect_isolated,
@@ -2316,8 +2481,7 @@ def drive_generators(torch):
             count = kernel.shape[0]
             # the key and the seed's ends read; every slab and target
             # written; the rounds this run's draws took
-            nbytes = 16 + 4 * (GEN_M + 1) * GEN_M + 12 * GEN_M * count
-            ops = ARRIVAL_OPS * count + ROUND_OPS * rounds
+            nbytes, ops = attach_work(count, GEN_M, rounds)
             row = kernel_row(
                 "attach" if chunk is None else "attach chunk=4096",
                 "src/repro_torch/csrc/attach.cu",
@@ -2438,8 +2602,10 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         conflict_block,
         conflict_matrix,
     )
+    from repro_torch.kernels.conflict.ops import work as conflict_cost
     from repro_torch.kernels.levels import levels as levels_kernel
     from repro_torch.kernels.levels.ops import wave_levels
+    from repro_torch.kernels.levels.ops import work as levels_work
     from repro_torch.utils.timing import cuda_event_ms
 
     rows = {}
@@ -2472,7 +2638,7 @@ def kernel_rows(torch, models, overlap_models, launches, errs):
         l_passes, l_swept = levels_kernel.last_run()
         l_plain = cuda_event_ms(lambda: wave_levels(
             conf, valid, backend="torch"), reps=3)
-        l_bytes = WINDOW * (WINDOW - 1) // 2 + WINDOW + 4 * WINDOW
+        l_bytes = levels_work(WINDOW)[0]
         info = {
             "nr": nr, "nw": nw,
             "conflict_ms": c_ms, "conflict_plain_ms": c_plain,
@@ -2543,6 +2709,7 @@ def sir_wave_case(torch, model, state=None):
     bytes, ops, info). Bytes: the distinct halo states (1 byte), the
     uniforms (4 bytes per agent), the subset ids (4 per row), the next
     states (1); ops: a compare and an add per neighbour and agent."""
+    from repro_torch.kernels.sir.ops import work as sir_work
     from repro_torch.utils import prng
 
     if state is None:
@@ -2553,24 +2720,12 @@ def sir_wave_case(torch, model, state=None):
     args = (state["states"], rec["subset"], model._draws(rec))
     kw = dict(n_agents=cfg.n_agents, k=k, subset_size=s_sz,
               p_si=cfg.p_si, p_ir=cfg.p_ir, p_rs=cfg.p_rs)
-    half = k // 2
-    halo = (rec["subset"].long()[:, None] * s_sz - half
-            + torch.arange(s_sz + 2 * half, device=DEVICE)) % cfg.n_agents
-    halo_bytes = int(torch.unique(halo).numel())
-    nbytes = halo_bytes + WINDOW * (5 * s_sz + 4)
-    ops = 2 * k * WINDOW * s_sz
+    nbytes, ops = sir_work(rec["subset"], n_agents=cfg.n_agents, k=k,
+                           subset_size=s_sz)
+    halo_bytes = nbytes - WINDOW * (5 * s_sz + 4)
     info = {"s": s_sz, "k": k, "halo_bytes": halo_bytes,
             "first_wave_tasks": int(first_wave(torch, model, rec).sum())}
     return args, kw, nbytes, ops, info
-
-
-def wkv6_cost(b, h, t, d, s0):
-    """(bytes, ops) of one wkv6 call: r, k, v, w in bf16, o and s_final
-    (and s0) in float32; 5·D² + 5·D flops per step and head (r·S, the
-    decay and outer product of the update, the bonus)."""
-    nbytes = (4 * b * h * t * d * 2 + b * h * t * d * 4
-              + (2 if s0 else 1) * b * h * d * d * 4)
-    return nbytes, b * h * t * (5 * d * d + 5 * d)
 
 
 def wave_kernel_rows(torch, ov_models, wide, launches, errs):
@@ -2582,6 +2737,7 @@ def wave_kernel_rows(torch, ov_models, wide, launches, errs):
     overlap path and the sharded phase, the widest tasks: the task-size
     phase)."""
     from repro_torch.kernels.axelrod.ops import axelrod_wave
+    from repro_torch.kernels.axelrod.ops import work as axelrod_work
     from repro_torch.kernels.sir.ops import sir_wave
     from repro_torch.utils import prng
     from repro_torch.utils.timing import cuda_event_ms
@@ -2603,11 +2759,7 @@ def wave_kernel_rows(torch, ov_models, wide, launches, errs):
                     *draws, mask)
             kw = {"omega": model.cfg.omega}
             fn, kname = axelrod_wave, "axelrod_wave"
-            # s, t and g read, new_t written (4 bytes each per feature);
-            # u, mask and interact (4 + 1 + 1 bytes per row)
-            nbytes = WINDOW * (16 * f + 6)
-            # a compare, a select and a compare per feature
-            ops = 3 * WINDOW * f
+            nbytes, ops = axelrod_work(WINDOW, f)
             extra = {"F": f, "first_wave_tasks": int(mask.sum())}
         else:
             args, kw, nbytes, ops, extra = sir_wave_case(torch, model,
@@ -3408,6 +3560,7 @@ def flash_row(torch, launches, err):
     from torch.nn.functional import scaled_dot_product_attention
 
     from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.flash.ops import work as flash_work
     from repro_torch.kernels.flash.ref import attention_ref
     from repro_torch.utils.timing import cuda_event_ms
 
@@ -3427,8 +3580,7 @@ def flash_row(torch, launches, err):
            "library_ms": cuda_event_ms(lambda: scaled_dot_product_attention(
                q32, k32, v32, is_causal=True, enable_gqa=True))}
     del q32, k32, v32
-    nbytes = 2 * (2 * b * h * t * d + 2 * b * hkv * s * d)
-    flops = 4 * b * h * t * s * d / 2          # causal: half the pairs
+    nbytes, flops = flash_work(b, h, hkv, t, s, d, causal=True)
     row = kernel_row("flash_attention", "src/repro_torch/csrc/flash.cu",
                      "src/repro/kernels/flash/flash.py:127", launches, err,
                      ms, plain, nbytes, flops,
@@ -3449,6 +3601,7 @@ def wkv6_row(torch, launches, err):
     operations (5·D² + 5·D per step and head: r·S, the decay and the outer
     product of the update, the bonus) are float32 CUDA-core work."""
     from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import work as wkv6_cost
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.utils.timing import cuda_event_ms
 
@@ -4941,7 +5094,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tasks", type=int, default=None,
                         help="tasks per model on both paths "
-                             f"(default 2^20 = {TOTAL_TASKS}; with "
+                             f"(default 2^19 = {TOTAL_TASKS}; with "
                              "--time-overlap 2^20)")
     parser.add_argument("--time-kernels", action="store_true",
                         help="only time the conflict, block, levels, "
@@ -5014,16 +5167,26 @@ def main(argv=None) -> None:
         profile_attach(torch)
         return
 
+    # the dry-run cells work the host's CPU: they run beside the untimed
+    # parity checks and are waited for before the first timed path
+    dry_cells = start_dryrun_cells(args.src)
     t0 = time.perf_counter()
-    errs = {"conflict": check_conflict_parity(torch, conflict_matrix),
-            "levels": check_levels_parity(torch, wave_levels),
-            "conflict_block": check_block_parity(torch, conflict_block),
-            "axelrod_wave": check_axelrod_parity(torch, axelrod_wave),
-            "sir_wave": check_sir_parity(torch, sir_wave),
-            "flash_attention": check_flash_parity(torch),
-            "wkv6": check_wkv6_parity(torch)}
-    check_wkv6_inplace(torch)
+    try:
+        errs = {"conflict": check_conflict_parity(torch, conflict_matrix),
+                "levels": check_levels_parity(torch, wave_levels),
+                "conflict_block": check_block_parity(torch, conflict_block),
+                "axelrod_wave": check_axelrod_parity(torch, axelrod_wave),
+                "sir_wave": check_sir_parity(torch, sir_wave),
+                "flash_attention": check_flash_parity(torch),
+                "wkv6": check_wkv6_parity(torch)}
+        check_wkv6_inplace(torch)
+    except BaseException:
+        stop_dryrun_cells(dry_cells[0])
+        raise
     log(f"parity: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_dryrun_cells(*dry_cells)
+    log(f"cost phase (d), waited: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     results, launches, models, topo = drive_main_path(torch, tasks)
@@ -5044,14 +5207,22 @@ def main(argv=None) -> None:
     log(f"task-size phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    drive_costs(torch, wide)
+    log(f"cost phase (a): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     traced_run(torch, ov_models)
     log(f"traced run: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     from repro_torch.obs import current_tracer
 
+    from repro_torch.obs.costs import current_recorder
+
     if current_tracer() is not None:
         fail("a tracer is still installed: the sync count needs it off")
+    if current_recorder() is not None:
+        fail("a cost recorder is installed: the sync count needs it off")
     count_syncs(torch, models, "wavefront")
     syncs = count_syncs(torch, ov_models, "wavefront_overlap")
     worst = max(syncs.values())

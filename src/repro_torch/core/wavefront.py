@@ -11,7 +11,8 @@ dynamic ``n_waves``). PyTorch has no device-side loop, so here the loop
 runs on the host and needs the wave count first: ``int(levels.max())`` —
 **one host sync per window**, and none per wave. The window and each wave
 open the reference's ``protocol.execute_window`` and ``protocol.wave``
-profiler ranges (``obs/profiler.py``).
+profiler ranges (``obs/profiler.py``); to an installed cost recorder
+(``obs/costs.py``) the wave loop is a data-dependent loop, depth 1.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.records import wave_levels, window_conflicts
+from repro_torch.obs.costs import current_recorder, loop as cost_loop
 from repro_torch.obs.profiler import annotate
 
 
@@ -36,7 +38,8 @@ def execute_window(model, state, recipes, valid: torch.Tensor, *,
         levels = wave_levels(conf, valid)
     n_waves = int(levels.max()) + 1  # the window's one host sync
     dev = levels.device
-    with annotate("protocol.execute_window", dev):
+    with annotate("protocol.execute_window", dev), \
+            cost_loop(current_recorder()):
         for w in range(n_waves):
             with annotate("protocol.wave", dev):
                 state = model.execute_wave(state, recipes, levels == w)

@@ -17,9 +17,11 @@ counts where the collectives are issued, as ``AgentGroup.comm_bytes``
 does for the agent axis: ``LEDGER`` records, per op (in the reference's
 names), the calls, the bytes of each rank's result (the reference's
 ``raw_bytes``) and the ring wire bytes, ``raw × _WIRE_FACTOR[op](n)`` for
-a group of n ranks, backward collectives included. DTensor's own
-redistributes (the propagated path) are not issued here: count them with
-``torch.distributed.tensor.debug.CommDebugMode``.
+a group of n ranks (``launch/hlo_analysis.py``'s table), backward
+collectives included, and each call reports itself to an installed cost
+recorder (``obs/costs.py``). DTensor's own redistributes (the propagated
+path) are not issued here: the cost recorder's dispatch mode counts them
+(``obs.costs.record_call``), as ``launch/dryrun.py`` does.
 
 Host staging. Four ranks on one card cannot use NCCL (it refuses two
 ranks on one GPU), so they use ``gloo``, which carries CUDA tensors in
@@ -38,13 +40,9 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-#: the reference's ring wire model (hlo_analysis.py), n ranks in a group
-WIRE_FACTOR = {
-    "all-reduce": lambda n: 2 * (n - 1) / max(n, 1),
-    "all-gather": lambda n: (n - 1) / max(n, 1),
-    "reduce-scatter": lambda n: (n - 1) / max(n, 1),
-    "all-to-all": lambda n: (n - 1) / max(n, 1),
-}
+from repro_torch.launch.hlo_analysis import _WIRE_FACTOR
+from repro_torch.obs.costs import current_recorder
+
 
 @dataclass
 class CommLedger:
@@ -56,7 +54,7 @@ class CommLedger:
     def record(self, op: str, n: int, nbytes: int) -> None:
         self.raw_bytes[op] = self.raw_bytes.get(op, 0) + nbytes
         self.wire_bytes[op] = (self.wire_bytes.get(op, 0.0)
-                               + nbytes * WIRE_FACTOR[op](n))
+                               + nbytes * _WIRE_FACTOR[op](n))
         self.count[op] = self.count.get(op, 0) + 1
 
     def total_wire(self) -> float:
@@ -83,10 +81,19 @@ def axis_group(mesh, axes):
     return mesh[axes]._flatten().get_group()
 
 
+def _count(op: str, out: torch.Tensor, group) -> None:
+    """Count one collective of result ``out`` in ``LEDGER`` and in an
+    installed cost recorder."""
+    n, nbytes = dist.get_world_size(group), out.numel() * out.element_size()
+    LEDGER.record(op, n, nbytes)
+    rec = current_recorder()
+    if rec is not None:
+        rec.collective(op, nbytes, n)
+
+
 def _issue(op: str, out: torch.Tensor, inp: torch.Tensor, group, call):
     """Run ``call(out, inp)`` (a collective) and count it."""
-    LEDGER.record(op, dist.get_world_size(group),
-                  out.numel() * out.element_size())
+    _count(op, out, group)
     call(out, inp)
     return out
 
@@ -145,8 +152,7 @@ def _all_to_all(x, group, split_dim, concat_dim):
 
 def _psum(x, group):
     out = x.contiguous().clone()
-    LEDGER.record("all-reduce", dist.get_world_size(group),
-                  out.numel() * out.element_size())
+    _count("all-reduce", out, group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 

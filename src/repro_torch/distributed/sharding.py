@@ -20,12 +20,14 @@ bytes ([h, row_bytes] uint8) and travel together.
     the packed row blocks.
 
 ``AgentGroup`` counts, at these call sites, the collectives issued and the
-bytes each rank receives from them — the stand-in for the reference's
-HLO cross-check (``repro/obs/costs.py``, not ported): over a run they
-equal the engine's ``comm_bytes_total`` exactly. A world of one (no
-process group) issues no collective — the reference's one-device mesh,
-whose psum is the identity — but its call sites still count, so its
-ledger reads as the reference's does.
+bytes each rank receives from them: over a run they equal the engine's
+``comm_bytes_total`` exactly. The same call sites report each collective
+to an installed cost recorder (``obs/costs.py``), with the loop it runs
+in, for ``Engine.compiled_costs`` and the reference's cross-check
+(``ledger_cross_check``). A world of one (no process group) issues no
+collective — the reference's one-device mesh, whose psum is the
+identity — but its call sites still count, so its ledger reads as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs.costs import current_recorder, loop as cost_loop
 from repro_torch.obs.profiler import annotate
 from repro_torch.utils.pytree import tree_map_with_path_str
 from repro_torch.utils.device import resolve_device
@@ -141,9 +144,19 @@ def _unpack(buf: torch.Tensor, like: dict) -> dict:
     return out
 
 
-def _all_reduce_sum(buf: torch.Tensor, agents: AgentGroup) -> torch.Tensor:
+def _all_reduce_sum(buf: torch.Tensor, agents: AgentGroup,
+                    units: int = 1) -> torch.Tensor:
+    """The packed rows' all-reduce, counted; ``units`` equal row blocks
+    of it stand for as many of the reference's collectives (the split
+    rung's chunks)."""
+    nbytes = buf.numel() * buf.element_size()
     agents.collectives += 1
-    agents.comm_bytes += buf.numel() * buf.element_size()
+    agents.comm_bytes += nbytes
+    rec = current_recorder()
+    if rec is not None:
+        rec.collective("all-reduce", nbytes // units, agents.world_size,
+                       units, type_str=f"u8[{buf.shape[0] // units},"
+                                       f"{buf.shape[1]}]")
     if agents.group is not None:
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=agents.group)
     return buf
@@ -158,9 +171,14 @@ def all_gather_rows(local, agents: AgentGroup, *, count: bool = True):
     leaves = _leaves(local)
     buf = _pack(leaves)
     if count:
+        nbytes = buf.numel() * buf.element_size() * agents.world_size
         agents.collectives += 1
-        agents.comm_bytes += (buf.numel() * buf.element_size()
-                              * agents.world_size)
+        agents.comm_bytes += nbytes
+        rec = current_recorder()
+        if rec is not None:
+            rec.collective("all-gather", nbytes, agents.world_size,
+                           type_str=f"u8[{agents.world_size * buf.shape[0]},"
+                                    f"{buf.shape[1]}]")
     if agents.group is not None:
         out = buf.new_empty((agents.world_size * buf.shape[0],
                              buf.shape[1]))
@@ -212,7 +230,8 @@ def pair_halo(halo_prev: torch.Tensor,
     return torch.cat([halo_prev, halo_next]).to(torch.int32)
 
 
-def halo_gather(local, halo: torch.Tensor, agents: AgentGroup):
+def halo_gather(local, halo: torch.Tensor, agents: AgentGroup, *,
+                units: int = 1):
     """Gather global rows ``halo`` from row-sharded leaves.
 
     ``local`` is this rank's contiguous row block [shard_n, ...] (a
@@ -222,7 +241,8 @@ def halo_gather(local, halo: torch.Tensor, agents: AgentGroup):
     and summing over the group reconstructs the rows everywhere — one
     all-reduce of h packed rows instead of an all_gather of N. A
     zero-width halo (an empty wave's slab) is a clean no-op: no
-    collective is issued and nothing is counted.
+    collective is issued and nothing is counted. ``units``: the equal
+    row blocks the halo is made of, for the cost recorder.
     """
     leaves = _leaves(local)
     if halo.shape[0] == 0:
@@ -234,7 +254,7 @@ def halo_gather(local, halo: torch.Tensor, agents: AgentGroup):
             idx = torch.clamp(halo - lo, 0, shard_n - 1).long()
             buf = _pack({k: x[idx] for k, x in leaves.items()})
             buf = torch.where(sel[:, None], buf, 0)  # uint8 stays uint8
-            out = _unpack(_all_reduce_sum(buf, agents), leaves)
+            out = _unpack(_all_reduce_sum(buf, agents, units), leaves)
     return out if isinstance(local, dict) else out[""]
 
 
@@ -357,11 +377,14 @@ def wave_halo_gather(local, slabs: torch.Tensor, c0: int, c1: int, *,
     [(c1 - c0)·chunk, ...], slab [(c1 - c0)·chunk]) — the slab is handed
     back so the caller can scatter the gathered rows without
     re-indexing. An empty range, or zero-width chunks, issues no
-    collective, matching ``halo_gather``.
+    collective, matching ``halo_gather``. To a cost recorder the call is
+    the reference's chunk loop (one depth deeper): ``c1 - c0`` units of
+    one chunk each.
     """
-    with annotate("protocol.wave_halo_gather", agents.device):
+    with annotate("protocol.wave_halo_gather", agents.device), \
+            cost_loop(current_recorder()):
         slab = slabs[c0:c1].reshape(-1)
-        return halo_gather(local, slab, agents), slab
+        return halo_gather(local, slab, agents, units=c1 - c0), slab
 
 
 # --------------------------------------------------------------------------

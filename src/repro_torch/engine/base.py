@@ -24,9 +24,15 @@ untraced branch of each step — no extra op and no host sync. With a
 tracer installed, the ``run``/``schedule``/``boundary``/``execute``
 spans of the reference are recorded, each fenced on its outputs, and
 each window's execute span is subdivided into width-attributed ``wave``
-spans. Not ported: the compiled-cost hooks, which lower XLA executors
-(the sharded engines count their collectives' bytes at the call sites
-instead, ``distributed/sharding.py``).
+spans.
+
+Costs (``Engine.compiled_costs``, ``repro_torch.obs.costs``): the
+reference lowers its window executors ahead of time and reads XLA's cost
+and memory analyses and HLO collectives; the port runs the executor once
+on clones of a prepared state and one window's schedule, and counts what
+it executes. The loops and the collective call sites report to the
+installed cost recorder only; with none installed they take no extra op
+and no host sync.
 """
 from __future__ import annotations
 
@@ -97,6 +103,43 @@ class Engine(abc.ABC):
             raise ValueError(f"the model's topology is on {topo.device}, "
                              f"the engine runs on {self.device}")
 
+    def _prepare_state(self, state):
+        """The state the window executors take, from the caller's."""
+        return state
+
+    # ------------------------------------------------------ compiled costs
+    def _cost_targets(self, base_key, state):
+        """``(name, fn, example_args)`` triples for the engine's window
+        executors (the functions ``run`` dispatches a window to), built
+        on one window's schedule. ``state`` is already prepared
+        (``_prepare_state`` has run). None = no such executor."""
+        return None
+
+    def compiled_costs(self, state, *, seed: int = 0):
+        """Cost telemetry of this engine's window executors: ``{name:
+        repro_torch.obs.costs.ExecutorCost}`` with the FLOPs and bytes
+        accessed, the memory decomposition and the collectives by call
+        site and loop depth (resolve them against executed iteration
+        counts, e.g. the sharded engine's ``comm_iteration_counts``).
+        Each executor runs once on clones, so ``state`` is not consumed.
+        ``_prepare_state`` runs first, which resets a sharded engine's
+        comm ledger: read ``comm_iteration_counts`` before. On a sharded
+        engine every rank calls this together, as it calls ``run``.
+        Returns None for overlapped runs (they dispatch the pair
+        executors) and for engines without executors."""
+        if self.overlap:
+            return None
+        from repro_torch.obs.costs import executor_cost
+
+        self._check_state(state)
+        state = self._prepare_state(state)
+        targets = self._cost_targets(prng.key(seed, device=self.device),
+                                     state)
+        if not targets:
+            return None
+        return {name: executor_cost(fn, *args, name=name)
+                for name, fn, args in targets}
+
     def _check_state(self, state) -> None:
         for k, x in state.items():
             if x.device != self.device:
@@ -144,10 +187,6 @@ class WindowedEngine(Engine):
     _schedule_ov = None
     _execute_pair = None
     _execute_drain = None
-
-    def _prepare_state(self, state):
-        """The state the window executors take, from the caller's."""
-        return state
 
     def _finalize_state(self, state):
         """The caller's state back from the executors' (run's result)."""

@@ -84,6 +84,7 @@ from repro_torch.distributed.sharding import (
     window_halo,
 )
 from repro_torch.engine.base import WindowedEngine, register_engine
+from repro_torch.obs.costs import current_recorder, loop as cost_loop
 from repro_torch.obs.profiler import annotate
 
 
@@ -272,15 +273,16 @@ class ShardedEngine(WindowedEngine):
         its owned tasks at level w on it, in order; the local block of
         the result is kept."""
         parts = [(rec, lv, self._owned(wa)) for rec, lv, wa in parts]
-        for w in range(n_waves):
-            with annotate("protocol.wave", self.device):
-                full = view(local, w)
-                for rec, lv, owned in parts:
-                    mask = lv == w
-                    if owned is not None:
-                        mask = mask & owned
-                    full = self.model.execute_wave(full, rec, mask)
-                local = self._keep_local(full)
+        with cost_loop(current_recorder()):
+            for w in range(n_waves):
+                with annotate("protocol.wave", self.device):
+                    full = view(local, w)
+                    for rec, lv, owned in parts:
+                        mask = lv == w
+                        if owned is not None:
+                            mask = mask & owned
+                        full = self.model.execute_wave(full, rec, mask)
+                    local = self._keep_local(full)
         return local
 
     def _run_split(self, local, parts, rows, levels, lv_count):
@@ -415,12 +417,20 @@ class ShardedEngine(WindowedEngine):
             stats["comm_reduction_vs_window_halo"] = None
         return stats
 
+    # ------------------------------------------------------ compiled costs
+    def _cost_targets(self, base_key, state):
+        sched = self._schedule(base_key, 0, self.window)
+        name = ("execute_split" if self._use_split and sched[4] is not None
+                else "execute_window")
+        return [(name, self._execute, (state, sched))]
+
     def comm_iteration_counts(self, stats: dict) -> dict[int, int]:
         """Executed loop iterations per nesting depth, from the comm
         ledger of the run that produced ``stats``: depth 1 is the wave
         loop (total executed waves), depth 2 the reference's chunk loop
         nested inside it (total chunk gathers = shipped rows / chunk; the
-        port ships a wave's chunks in one collective)."""
+        port ships a wave's chunks in one collective). Read it before
+        ``compiled_costs``, which re-prepares the state (a reset)."""
         chunk_iters = sum(r // self.chunk for kind, r, _ in self._win_comm
                           if kind == "split")
         return {1: int(stats["total_waves"]), 2: chunk_iters}

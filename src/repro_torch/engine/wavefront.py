@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core.wavefront import execute_window
 from repro_torch.engine.base import WindowedEngine, register_engine
+from repro_torch.obs.costs import current_recorder, loop as cost_loop
 from repro_torch.obs.profiler import annotate
 
 
@@ -46,7 +47,8 @@ class WavefrontEngine(WindowedEngine):
         ran early has none left and runs zero waves."""
         rec_a, rec_b = cur[0], nxt[0]
         n_waves = int(lv_a.max()) + 1
-        with annotate("protocol.execute_pair", lv_a.device):
+        with annotate("protocol.execute_pair", lv_a.device), \
+                cost_loop(current_recorder()):
             for w in range(n_waves):
                 # fused wave: window k's tasks at level w, then window
                 # k+1's — the carry frontier keeps the two masks
@@ -68,6 +70,10 @@ class WavefrontEngine(WindowedEngine):
         """Partnerless drain (the last or only window) through the
         barrier executor: no empty partner waves."""
         return self._execute(state, (cur[0], cur[1], lv))
+
+    def _cost_targets(self, base_key, state):
+        sched = self._schedule(base_key, 0, self.window)
+        return [("execute_window", self._execute, (state, sched))]
 
 
 @register_engine

@@ -3,7 +3,9 @@
 A CUDA tensor launches the hand-written kernel (attach.py); a CPU tensor
 takes the plain version (ref.py). ``backend`` forces one: ``"cuda"`` (the
 kernel — CUDA tensors only) or ``"torch"`` (the plain version on the
-tensors' own device, as the kernel's parity checks use it).
+tensors' own device, as the kernel's parity checks use it). ``work`` is
+the kernel's work in bytes and operations, which the CUDA branch reports
+to an installed cost recorder (``obs/costs.py``).
 """
 from __future__ import annotations
 
@@ -11,7 +13,31 @@ import torch
 
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.attach.attach import attach_cuda
+from repro_torch.kernels.attach import ref as attach_ref
 from repro_torch.kernels.attach.ref import attach_plain
+from repro_torch.obs.costs import current_recorder
+
+#: ops of one Threefry-2x32 hash on the card: 20 mixing steps of an add, a
+#: rotate and a xor, five key injections of three adds, the key's parity
+#: word (two xors) and the first two adds
+HASH_OPS = 79
+#: ops of one rejection round: six hashes (the round's key — the fold_in
+#: for the first, a split for the rest — its sub and randint's four), the
+#: bits' two xors, three remainders (~15 ops each: a 32-bit division), a
+#: multiply and an add
+ROUND_OPS = 6 * HASH_OPS + 2 + 3 * 15 + 2
+#: ops of an arrival besides its rounds: the multiplier's two remainders
+ARRIVAL_OPS = 2 * 15
+
+
+def work(count: int, m: int, rounds: int) -> tuple[int, int]:
+    """(bytes, operations) of a build of ``count`` arrivals of ``m``
+    targets whose draws took ``rounds`` rejection rounds (data-dependent:
+    the plain version counts them, ``ref.rounds_drawn``): the key and the
+    seed's ends read, every slab and target written; the rounds' and the
+    arrivals' integer ops."""
+    return (16 + 4 * (m + 1) * m + 12 * m * count,
+            ARRIVAL_OPS * count + ROUND_OPS * rounds)
 
 
 def attach_arrivals(key, ends, *, first: int, count: int, fill: int, m: int,
@@ -34,8 +60,18 @@ def attach_arrivals(key, ends, *, first: int, count: int, fill: int, m: int,
     if backend is None:
         backend = "cuda" if use_kernel(ends) else "torch"
     if backend == "cuda":
-        return attach_cuda(key, ends, first=first, count=count, fill=fill,
-                           m=m, warm=warm, block=block)
+        rec = current_recorder()
+        before = None if rec is None else ends.clone()
+        out = attach_cuda(key, ends, first=first, count=count, fill=fill,
+                          m=m, warm=warm, block=block)
+        if rec is not None:
+            # the rounds are the draws', which the plain version repeats
+            r0 = attach_ref.rounds_drawn
+            attach_plain(key, before, first=first, count=count, fill=fill,
+                         m=m, warm=warm, block=block)
+            rec.kernel("attach", *work(count, m,
+                                       attach_ref.rounds_drawn - r0))
+        return out
     if backend == "torch":
         return attach_plain(key, ends, first=first, count=count, fill=fill,
                             m=m, warm=warm, block=block)

@@ -5,6 +5,8 @@ A CUDA tensor launches the hand-written kernel (conflict.py); a CPU
 tensor takes the plain version (ref.py). ``backend`` forces one:
 ``"cuda"`` (the kernel — CUDA tensors only) or ``"torch"`` (the plain
 version on the tensors' own device, as the kernel's parity checks use it).
+``work`` is the kernels' work in bytes and operations, which the CUDA
+branch reports to an installed cost recorder (``obs/costs.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,23 @@ from repro_torch.kernels.conflict.ref import (
     conflict_block_ref,
     conflict_matrix_ref,
 )
+from repro_torch.obs.costs import current_recorder
+
+
+def work(sides, out: torch.Tensor) -> tuple[int, float]:
+    """(bytes, operations) the conflict kernels need on these inputs:
+    every id slot and validity byte of each side in ``sides`` ((reads,
+    writes, valid); one side for the prefix matrix, two for the block)
+    and every byte of the output ``out``, once each; one operation per
+    used slot of a valid task (its lookup or insert) and one per cell
+    set. A join compares no slots that share no id. Data-dependent: it
+    reads the device (a host sync)."""
+    nbytes, ops = out.numel(), float(out.sum())
+    for reads, writes, valid in sides:
+        nbytes += 4 * (reads.numel() + writes.numel()) + valid.numel()
+        ops += float(((reads >= 0).sum(1) + (writes >= 0).sum(1))[valid]
+                     .sum())
+    return nbytes, ops
 
 
 def conflict_matrix(read_ids, write_ids, valid, *, strict: bool = True,
@@ -34,8 +53,13 @@ def conflict_matrix(read_ids, write_ids, valid, *, strict: bool = True,
     if backend is None:
         backend = "cuda" if use_kernel(read_ids) else "torch"
     if backend == "cuda":
-        return conflict_matrix_cuda(read_ids, write_ids, valid,
-                                    strict=strict)
+        out = conflict_matrix_cuda(read_ids, write_ids, valid,
+                                   strict=strict)
+        rec = current_recorder()
+        if rec is not None:
+            rec.kernel("conflict_matrix",
+                       *work([(read_ids, write_ids, valid)], out))
+        return out
     if backend == "torch":
         return conflict_matrix_ref(read_ids, write_ids, valid, strict=strict)
     raise ValueError(f"unknown conflict backend {backend!r}")
@@ -60,8 +84,14 @@ def conflict_block(reads_i, writes_i, reads_j, writes_j, valid_i, valid_j,
     if backend is None:
         backend = "cuda" if use_kernel(reads_i) else "torch"
     if backend == "cuda":
-        return conflict_block_cuda(reads_i, writes_i, reads_j, writes_j,
-                                   valid_i, valid_j, strict=strict)
+        out = conflict_block_cuda(reads_i, writes_i, reads_j, writes_j,
+                                  valid_i, valid_j, strict=strict)
+        rec = current_recorder()
+        if rec is not None:
+            rec.kernel("conflict_block", *work(
+                [(reads_i, writes_i, valid_i), (reads_j, writes_j, valid_j)],
+                out))
+        return out
     if backend == "torch":
         return conflict_block_ref(reads_i, writes_i, reads_j, writes_j,
                                   valid_i, valid_j, strict=strict)

@@ -3,7 +3,9 @@
 A CUDA tensor launches the hand-written kernel (levels.py); a CPU tensor
 takes the plain version (ref.py). ``backend`` forces one: ``"cuda"`` (the
 kernel — CUDA tensors only) or ``"torch"`` (the plain version on the
-tensors' own device).
+tensors' own device). ``work`` is the kernel's work in bytes and
+operations, which the CUDA branch reports to an installed cost recorder
+(``obs/costs.py``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,15 @@ import torch
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.levels.levels import wave_levels_cuda
 from repro_torch.kernels.levels.ref import wave_levels_ref
+from repro_torch.obs.costs import current_recorder
+
+
+def work(w: int, base: bool = False) -> tuple[int, float]:
+    """(bytes, operations) of the levels kernel on a window of ``w``: the
+    conflict matrix below the diagonal (one byte a cell), the validity
+    bytes, the int32 levels written (and the int32 floor read with
+    ``base``); no arithmetic worth a bound."""
+    return w * (w - 1) // 2 + w + 4 * w + (4 * w if base else 0), 0.0
 
 
 def wave_levels(conflicts, valid, *, base=None,
@@ -31,7 +42,12 @@ def wave_levels(conflicts, valid, *, base=None,
     if backend is None:
         backend = "cuda" if use_kernel(conflicts) else "torch"
     if backend == "cuda":
-        return wave_levels_cuda(conflicts, valid, base)
+        out = wave_levels_cuda(conflicts, valid, base)
+        rec = current_recorder()
+        if rec is not None:
+            rec.kernel("wave_levels",
+                       *work(conflicts.shape[0], base is not None))
+        return out
     if backend == "torch":
         return wave_levels_ref(conflicts, valid, base)
     raise ValueError(f"unknown levels backend {backend!r}")

@@ -5,7 +5,8 @@ ring halo straight from the agent states; a CPU tensor takes the plain
 version (ref.py), which gathers the halo first. ``backend`` forces one:
 ``"cuda"`` (the kernel — CUDA tensors only) or ``"torch"`` (the plain
 version on the tensors' own device, as the kernel's parity checks use
-it).
+it). ``work`` is the kernel's work in bytes and operations, which the
+CUDA branch reports to an installed cost recorder (``obs/costs.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,22 @@ import torch
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.sir.ref import sir_wave_plain
 from repro_torch.kernels.sir.sir import sir_wave_cuda
+from repro_torch.obs.costs import current_recorder
+
+
+def work(subsets: torch.Tensor, *, n_agents: int, k: int,
+         subset_size: int) -> tuple[int, int]:
+    """(bytes, operations) of one wave over ``subsets``: every distinct
+    ring state the subsets' halos read (1 byte each), the uniforms (4),
+    the next states (1) and the subset ids (4 a row); a compare and an
+    add per neighbour and agent. Data-dependent: it counts the distinct
+    halo agents on the device (a host sync)."""
+    w, half = subsets.shape[0], k // 2
+    halo = (subsets.long()[:, None] * subset_size - half
+            + torch.arange(subset_size + 2 * half,
+                           device=subsets.device)) % n_agents
+    halo_bytes = int(torch.unique(halo).numel())
+    return halo_bytes + w * (5 * subset_size + 4), 2 * k * w * subset_size
 
 
 def sir_wave(states, subsets, u, *, n_agents: int, k: int,
@@ -35,8 +52,13 @@ def sir_wave(states, subsets, u, *, n_agents: int, k: int,
     if backend is None:
         backend = "cuda" if use_kernel(states) else "torch"
     if backend == "cuda":
-        return sir_wave_cuda(states, subsets, u, k=k, p_si=p_si, p_ir=p_ir,
-                             p_rs=p_rs)
+        out = sir_wave_cuda(states, subsets, u, k=k, p_si=p_si, p_ir=p_ir,
+                            p_rs=p_rs)
+        rec = current_recorder()
+        if rec is not None:
+            rec.kernel("sir_wave", *work(subsets, n_agents=n_agents, k=k,
+                                         subset_size=subset_size))
+        return out
     if backend == "torch":
         return sir_wave_plain(states, subsets, u, n_agents=n_agents, k=k,
                               subset_size=subset_size, p_si=p_si,

@@ -56,6 +56,7 @@ from repro_torch.distributed.sharding import (
     spec_placements,
 )
 from repro_torch.distributed.spmd import is_dtensor, settle
+from repro_torch.obs.costs import current_recorder, loop as cost_loop
 from repro_torch.models.attention import (
     attention,
     init_attention,
@@ -311,18 +312,21 @@ def run_segment(seg: Segment, layers, x, cfg, *, positions, state=None,
     for the backward pass and recomputes the rest of the layer there."""
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     aux = _zero_aux(x.device)
-    for i, lp in enumerate(layers):
-        x = _sp_constraint(x, cfg)
-        kw = dict(positions=positions, is_global=seg.is_global,
-                  state=_layer_state(state, i), mode=mode, commit=commit,
-                  enc_out=enc_out)
-        if remat:
-            x, la = checkpoint(apply_layer, seg.kind, lp, x, cfg, **kw,
-                               use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, la = apply_layer(seg.kind, lp, x, cfg, **kw)
-        if la is not None:
-            aux = {k: aux[k] + la[k].float() for k in aux}
+    # to a cost recorder, the reference's scan over the layers
+    with cost_loop(current_recorder(), len(layers)):
+        for i, lp in enumerate(layers):
+            x = _sp_constraint(x, cfg)
+            kw = dict(positions=positions, is_global=seg.is_global,
+                      state=_layer_state(state, i), mode=mode,
+                      commit=commit, enc_out=enc_out)
+            if remat:
+                x, la = checkpoint(apply_layer, seg.kind, lp, x, cfg, **kw,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                x, la = apply_layer(seg.kind, lp, x, cfg, **kw)
+            if la is not None:
+                aux = {k: aux[k] + la[k].float() for k in aux}
     return x, aux
 
 

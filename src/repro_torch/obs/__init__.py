@@ -12,10 +12,23 @@
                   the ``annotate`` ranges that label the protocol phases.
   provenance.py — environment header (torch and CUDA versions, backend,
                   device kind and count, power limit, timestamp, git sha).
-
-The reference's compiled-cost telemetry (``obs/costs.py``) parses XLA
-HLO; it comes with the sharded engines.
+  costs.py      — cost telemetry of one executed window executor: FLOPs,
+                  bytes accessed, the memory decomposition, the
+                  collectives by call site and loop depth, and the cross-
+                  check against the sharded engines' comm ledger
+                  (``Engine.compiled_costs``); the recorder the loops,
+                  collective call sites and kernel wrappers report to.
 """
+from repro_torch.obs.costs import (
+    CrossCheck,
+    ExecutorCost,
+    HloCollectives,
+    current_recorder,
+    executor_cost,
+    ledger_cross_check,
+    parse_collectives,
+    recording,
+)
 from repro_torch.obs.provenance import provenance
 from repro_torch.obs.stats import (
     STATS_VERSION,
@@ -42,4 +55,12 @@ __all__ = [
     "registry",
     "row_keys",
     "provenance",
+    "ExecutorCost",
+    "HloCollectives",
+    "CrossCheck",
+    "executor_cost",
+    "parse_collectives",
+    "ledger_cross_check",
+    "current_recorder",
+    "recording",
 ]

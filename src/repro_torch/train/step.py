@@ -37,6 +37,7 @@ from repro_torch.distributed.sharding import (
     replicated,
 )
 from repro_torch.distributed.spmd import full_tensor, local
+from repro_torch.obs.costs import current_recorder, loop as cost_loop
 from repro_torch.train.optim import (
     AdamWConfig,
     OptState,
@@ -73,8 +74,11 @@ def init_train_state(model, key, *, device=None) -> TrainState:
                                        device=model.device))
 
 
-def make_train_step(model, hp: TrainHParams):
-    """Returns step_fn(state, batch) -> (state, metrics)."""
+def loss_grads(model):
+    """Returns ``grads_of(params, leaves, batch) -> (grads, metrics)``:
+    the loss's gradients with respect to ``leaves`` (the parameters'
+    named leaves, in order) on one batch or microbatch, and its metrics
+    (``loss`` and the model's), detached."""
 
     def grads_of(params, leaves, batch):
         loss, metrics = model.loss(params, batch)
@@ -88,6 +92,29 @@ def make_train_step(model, hp: TrainHParams):
                           for k, v in metrics.items()},
                        "loss": loss.detach()}
 
+    return grads_of
+
+
+def apply_update(hp: TrainHParams, state: TrainState, named: dict, grads,
+                 metrics: dict):
+    """AdamW on ``grads`` (in ``named``'s order) at the step's learning
+    rate; the state updated in place. Returns (state, metrics with the
+    optimizer's)."""
+    lr = cosine_schedule(local(state.step), peak_lr=hp.peak_lr,
+                         warmup_steps=hp.warmup_steps,
+                         total_steps=hp.total_steps)
+    params, opt, opt_metrics = adamw_update(
+        hp.adamw, state.params, dict(zip(named, grads)), state.opt, lr)
+    metrics.update(opt_metrics)
+    with torch.no_grad():
+        state.step.add_(1)
+    return TrainState(params, opt, state.step), metrics
+
+
+def make_train_step(model, hp: TrainHParams):
+    """Returns step_fn(state, batch) -> (state, metrics)."""
+    grads_of = loss_grads(model)
+
     def step_fn(state: TrainState, batch):
         named = dict(named_leaves(state.params))
         leaves = list(named.values())
@@ -100,30 +127,22 @@ def make_train_step(model, hp: TrainHParams):
             gsum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in leaves]
             ms = []
-            for i in range(n_micro):
-                mb = {k: v[i * (v.shape[0] // n_micro):
-                           (i + 1) * (v.shape[0] // n_micro)]
-                      for k, v in batch.items()}
-                g, m = grads_of(state.params, leaves, mb)
-                for acc, gi in zip(gsum, g):
-                    acc.add_(gi)            # gi rounded up to float32
-                ms.append(m)
-                del g
+            with cost_loop(current_recorder(), n_micro):
+                for i in range(n_micro):
+                    mb = {k: v[i * (v.shape[0] // n_micro):
+                               (i + 1) * (v.shape[0] // n_micro)]
+                          for k, v in batch.items()}
+                    g, m = grads_of(state.params, leaves, mb)
+                    for acc, gi in zip(gsum, g):
+                        acc.add_(gi)        # gi rounded up to float32
+                    ms.append(m)
+                    del g
             grads = [acc.div_(n_micro) for acc in gsum]
             metrics = {k: torch.stack([m[k] for m in ms]).mean(dim=0)
                        for k in ms[0]}
         else:
             grads, metrics = grads_of(state.params, leaves, batch)
-
-        lr = cosine_schedule(local(state.step), peak_lr=hp.peak_lr,
-                             warmup_steps=hp.warmup_steps,
-                             total_steps=hp.total_steps)
-        params, opt, opt_metrics = adamw_update(
-            hp.adamw, state.params, dict(zip(named, grads)), state.opt, lr)
-        metrics.update(opt_metrics)
-        with torch.no_grad():
-            state.step.add_(1)
-        return TrainState(params, opt, state.step), metrics
+        return apply_update(hp, state, named, grads, metrics)
 
     return step_fn
 

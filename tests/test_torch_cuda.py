@@ -1254,3 +1254,115 @@ def test_hymba_engine_on_card_matches_sequential_through_flash(
     assert [r.out_tokens for r in done] == refs
     assert levels_kernel.launches == eng.iterations
 
+
+
+# ------------------------------------------------------------ cost telemetry
+@pytest.mark.parametrize("family", ["axelrod", "sirs"])
+def test_compiled_costs_on_card_count_the_wave_kernels(cuda_device, family):
+    """``compiled_costs`` of ``wavefront`` on the card: the wave kernel's
+    reported launches and its counter equal the window's waves, its work
+    the waves × ``work()`` on the same inputs; the caller's state is
+    unchanged; the temp bytes are the allocator's."""
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.axelrod.ops import work as axelrod_work
+    from repro_torch.kernels.sir.ops import work as sir_work
+
+    if family == "axelrod":
+        model = AxelrodModel(AxelrodConfig(n_agents=20_000, n_features=37,
+                                           q=3, omega=0.95),
+                             device=cuda_device)
+        kernel, name = axelrod_kernel, "axelrod_wave"
+    else:
+        model = SIRModel(SIRConfig(n_agents=40_000, k=14, subset_size=100),
+                         device=cuda_device)
+        kernel, name = sir_kernel, "sir_wave"
+    eng = make_engine("wavefront", model, window=512, device=cuda_device)
+    st0 = model.init_state(prng.key(1, device=cuda_device),
+                           device=cuda_device)
+    before = {k: v.clone() for k, v in st0.items()}
+    key = prng.key(5, device=cuda_device)
+    _, _, levels = eng._schedule(key, 0, 512)
+    waves = int(levels.max()) + 1
+    if family == "axelrod":
+        one = axelrod_work(512, 37)
+    else:
+        rec = model.create_tasks(key, 0, 512)
+        one = sir_work(rec["subset"], n_agents=40_000, k=14, subset_size=100)
+    n0 = kernel.launches
+    (cost,) = eng.compiled_costs(st0, seed=5).values()
+    assert kernel.launches - n0 == waves
+    assert cost.kernels == {name: {"launches": waves,
+                                   "bytes": waves * one[0],
+                                   "ops": waves * one[1]}}
+    for k, v in st0.items():
+        assert torch.equal(v, before[k]), k
+    assert cost.device_peak_bytes is not None and cost.temp_bytes >= 0
+
+
+@pytest.mark.parametrize("ename", ["sharded", "sharded_window_halo",
+                                   "sharded_replicated"])
+def test_world_one_cross_check_on_card(cuda_device, ename):
+    """The reference's cross-check identity on the card (a world of one,
+    no process group): exact on each barrier rung."""
+    from repro_torch.engine import make_engine
+    from repro_torch.obs.costs import ledger_cross_check
+
+    topo = watts_strogatz(3000, 6, 0.1, prng.key(4, device=cuda_device),
+                          device=cuda_device)
+    model = SISModel(topo)
+    eng = make_engine(ename, model, window=128, device=cuda_device)
+    st0 = model.init_state(prng.key(1, device=cuda_device),
+                           device=cuda_device)
+    _, stats = eng.run(st0, 1024, seed=2)
+    iters = eng.comm_iteration_counts(stats)
+    chk = ledger_cross_check(eng.compiled_costs(st0, seed=2), iters,
+                             stats["comm_bytes_total"])
+    assert chk.ok and chk.ratio == 1.0 and chk.parsed_bytes > 0
+
+
+def test_kernel_wrappers_report_their_work_on_card(cuda_device):
+    """Each other kernel's wrapper on the card reports one launch and its
+    ``work()`` on the same inputs to an installed recorder."""
+    from repro_torch.kernels.attach.ops import work as attach_work
+    from repro_torch.kernels.attach import ref as attach_ref
+    from repro_torch.kernels.conflict.ops import work as conflict_work
+    from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.flash.ops import work as flash_work
+    from repro_torch.kernels.levels.ops import work as levels_work
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import work as wkv6_work
+    from repro_torch.obs.costs import recording
+
+    reads, writes, valid = _footprint(3, 256, 5, 1, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(2, 4, 64, 32, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(2, 2, 64, 32, generator=g, device=cuda_device,
+                     dtype=torch.bfloat16)
+    r = torch.randn(1, 2, 40, 16, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    key = prng.key(3, device=cuda_device)
+    ends = torch.zeros(4 + 2 * 2 * 300, dtype=torch.int32,
+                       device=cuda_device)
+    ends[:4] = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    r0 = attach_ref.rounds_drawn
+    with recording() as rec:
+        conf = conflict_matrix(reads, writes, valid)
+        cross = conflict_block(reads, writes, reads, writes, valid, valid)
+        wave_levels(conf, valid)
+        flash_attention(q, kv, kv, causal=True)
+        wkv6(r, r, r, torch.rand(r.shape, generator=g, device=cuda_device,
+                                 dtype=torch.bfloat16),
+             torch.zeros(2, 16, device=cuda_device))
+        attach_arrivals(key, ends, first=2, count=300, fill=4, m=2)
+    want = {
+        "conflict_matrix": conflict_work([(reads, writes, valid)], conf),
+        "conflict_block": conflict_work([(reads, writes, valid)] * 2,
+                                        cross),
+        "wave_levels": levels_work(256),
+        "flash_attention": flash_work(2, 4, 2, 64, 64, 32),
+        "wkv6": wkv6_work(1, 2, 40, 16, False),
+        "attach": attach_work(300, 2, attach_ref.rounds_drawn - r0),
+    }
+    assert rec.kernels == {k: {"launches": 1, "bytes": b, "ops": o}
+                           for k, (b, o) in want.items()}

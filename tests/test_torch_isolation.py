@@ -124,7 +124,7 @@ def test_constructors_without_device_raise(no_cuda, call):
 
 
 @pytest.mark.parametrize("package", ["core", "topology", "engine",
-                                     "train", "distributed"])
+                                     "train", "distributed", "obs"])
 def test_reference_public_names_have_counterparts(package):
     """Every name in the reference's ``__all__`` resolves in the port's
     package of the same name (and is listed in its ``__all__``)."""

@@ -30,7 +30,10 @@ Contracts, and why:
     aux terms within ``rtol=1e-5`` (measured equal);
   * sharded decode equals unsharded decode within ``1e-5``; the int8
     cross-pod reduction equals the mean of the compressed gradients
-    within ``1e-6``, its residuals exactly.
+    within ``1e-6``, its residuals exactly;
+  * the dry run's collectives, recorded on the meta device over a fake
+    process group of four ranks, equal rank 0's recorded step, op by op
+    and exactly (the same step: shapes, not values, decide them).
 """
 import os
 import pickle
@@ -359,6 +362,48 @@ def test_crosspod_allreduce_compressed(runs):
     assert got["err"] < 1e-6 and got["ef_equal"]
 
 
+# --------------------------------------------------- the dry run's counts
+def test_dry_run_collectives_equal_four_gloo_ranks(runs):
+    """The dry run's collective count on a fake world: the smollm
+    configuration's train step with its arguments on the meta device,
+    placed on a (2, 2) mesh over a fake process group of four ranks
+    (``dryrun.sharded_step_costs``, as the dry run's cells run on 256 or
+    512), records per op the same collectives — count, bytes of every
+    execution, one-body bytes and ring wire bytes — as rank 0 of the four
+    real gloo ranks records for one step of the same configuration on
+    real values."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    want = _case(runs, "costs_smollm")
+    cfg = C.config(ARCHS, "smollm")
+    shape = ShapeSpec("train", "train", C.SEQ, C.BATCH["smollm"])
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=C.WORLD)
+    try:
+        mesh = make_host_mesh(C.MESH, device_type="cpu")
+        model, trees, mb = dryrun.cell_arguments(cfg, shape, mesh)
+        assert mb == 1
+        got, nbytes = dryrun.sharded_step_costs(cfg, shape, model, trees,
+                                                mb, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got.count == want["count"]
+    assert got.loop_bytes == want["loop_bytes"]
+    assert got.raw_bytes == want["raw_bytes"]
+    assert got.wire_bytes == want["wire_bytes"]
+    assert set(got.count) == {"all-reduce", "all-gather", "reduce-scatter"}
+    assert got.unknown_trip_whiles == 0
+    # the layer loop (2 layers): one body's bytes below the step's
+    assert got.raw_bytes["all-reduce"] < got.loop_bytes["all-reduce"]
+    assert nbytes > 0
+
+
 # -------------------------------------------------------------- launcher
 def test_launcher_sharded_path_runs(runs):
     got = _case(runs, "launch")
@@ -374,3 +419,37 @@ def test_launcher_refuses_without_a_world():
     with pytest.raises(SystemExit, match="torchrun"):
         launcher.main(["--arch", "smollm-360m", "--reduced", "--device",
                        "cpu", "--mesh", "single", "--steps", "1"])
+
+
+def test_dry_run_replays_the_microbatch_loop_exactly():
+    """The dry run runs a step's first microbatch alone and lets it stand
+    for every microbatch (each is one program on the meta device): at
+    microbatches 4 the replayed record equals the whole loop's, op by
+    op, on a fake (2, 2) world."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = C.config(ARCHS, "smollm")
+    shape = ShapeSpec("train", "train", C.SEQ, 8)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=C.WORLD)
+    try:
+        mesh = make_host_mesh(C.MESH, device_type="cpu")
+        got = {}
+        for replay in (True, False):
+            model, trees, _ = dryrun.cell_arguments(cfg, shape, mesh)
+            got[replay] = dryrun.sharded_step_costs(
+                cfg, shape, model, trees, 4, mesh, replay=replay)
+    finally:
+        dist.destroy_process_group()
+    (one, one_bytes), (whole, whole_bytes) = got[True], got[False]
+    assert one == whole
+    assert one.loop_bytes["all-reduce"] > one.raw_bytes["all-reduce"]
+    # the bytes after the loop (the metrics of 4 microbatches, stacked)
+    # are one microbatch's
+    assert abs(one_bytes - whole_bytes) < 1e-4 * whole_bytes

@@ -332,6 +332,26 @@ def test_four_ranks_degenerate_width(launches):
     assert s["halo"] and s["per_wave_gather_rows"] == 128
 
 
+@pytest.mark.parametrize("cid", C.COST_CASES)
+def test_four_ranks_costs_equal_reference(launches, cid):
+    """``compiled_costs`` at world size 4 on the split, window-halo and
+    replicated rungs: on every rank the collectives recorded at the call
+    sites, by loop depth and resolved against ``comm_iteration_counts``,
+    equal the reference's, parsed from its compiled HLO on four devices,
+    and the resolved total equals ``comm_bytes_total`` (the reference's
+    cross-check identity, exact)."""
+    ref, ranks = launches.results()
+    want = ref[cid, 256]
+    for r, res in enumerate(ranks):
+        got = res[cid, 256]
+        assert got["iters"] == want["iters"], r
+        assert set(got["costs"]) == set(want["costs"]), r
+        for name, c in got["costs"].items():
+            assert c == want["costs"][name], (r, name)
+            assert c["total"] == got["stats"]["comm_bytes_total"], (r, name)
+        assert sum(c["total"] for c in got["costs"].values()) > 0
+
+
 @pytest.mark.parametrize("cid,total", [("no_contracts-sharded", 150),
                                        ("write_only-sharded", 100)])
 def test_four_ranks_without_contracts_replicate(launches, cid, total):

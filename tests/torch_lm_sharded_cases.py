@@ -142,6 +142,31 @@ def _port_cases(inputs, tmp, rank):
                 "ledger": dict(collectives.LEDGER.count),
                 "placements": placements, "moments": moments}
 
+    def costs():
+        """One sharded train step of the smollm configuration on the
+        first batch, recorded as the dry run records its cells
+        (``obs.costs.record_call``: DTensor's redistributes through the
+        dispatch mode, the sharded layers' collectives at their call
+        sites), from a fresh state: the collectives by op."""
+        from repro_torch.launch.hlo_analysis import analyze_collectives
+        from repro_torch.obs.costs import record_call
+
+        cfg = config(ARCHS, "smollm")
+        model = build_model(cfg, cpu)
+        like = bridge.train_state_from_numpy(model, inputs["states"]["smollm"])
+        state = bridge.train_state_from_numpy(
+            model, inputs["states"]["smollm"],
+            shardings=train_state_shardings(like, cfg, mesh))
+        step = make_train_step(model, TrainHParams(**HP))
+        b = tensors(inputs["batches"]["smollm"][0])
+        sh = train_batch_shardings(b, mesh, layout=cfg.layout)
+        with mesh_context(mesh):
+            rec = record_call(lambda bb: step(state, bb),
+                              {k: distribute(v, sh[k]) for k, v in b.items()})
+        st = analyze_collectives(rec.trace)
+        return {"count": st.count, "loop_bytes": st.loop_bytes,
+                "raw_bytes": st.raw_bytes, "wire_bytes": st.wire_bytes}
+
     def moe_layer(impl):
         cfg = config(ARCHS, "moe", moe_impl=impl)
         p = init_moe(Init(cpu, None), cfg)
@@ -323,6 +348,7 @@ def _port_cases(inputs, tmp, rank):
         ("train_smollm", lambda: train("smollm", TRAIN["smollm"],
                                        save_at=3)),
         ("restore", restore),
+        ("costs_smollm", costs),
         ("train_rwkv_tp", lambda: train("rwkv", TRAIN["rwkv"])),
         ("train_rwkv_dp", lambda: train("rwkv", TRAIN["rwkv"],
                                         layout="dp")),

@@ -19,6 +19,13 @@ halo trips the width guard, and watts_strogatz(4096) at W = 32, where the
 pair halo wins); a model without row contracts; one with only the write
 contract; and the comm-regression configuration (W = 128 and 256).
 Between them every rung of the ladder runs: split, halo, pair and full.
+
+The three barrier runs of the comm ladder on voter (``COST_CASES``: the
+split, window-halo and replicated rungs) also return each side's
+executor costs after the run: the executed iteration counts
+(``comm_iteration_counts``, read first) and the collectives of
+``compiled_costs`` — recorded at the port's call sites, parsed from the
+compiled HLO on the reference's side — by depth and resolved.
 """
 import os
 import pickle
@@ -92,6 +99,23 @@ def _cases():
 
 
 CASES = _cases()
+
+#: the ladder's barrier runs whose executor costs both sides return
+COST_CASES = ("ladder-voter-sharded", "ladder-voter-sharded_window_halo",
+              "ladder-voter-sharded_replicated")
+
+
+def _costs(eng, st0, stats, seed):
+    """The executed iteration counts, then each executor's collectives by
+    depth and resolved against them (the counts come first: the costs
+    re-prepare the state, which resets the ledger)."""
+    iters = eng.comm_iteration_counts(stats)
+    costs = eng.compiled_costs(st0, seed=seed)
+    return {"iters": iters,
+            "costs": {name: {"bytes_by_depth":
+                             c.collectives.bytes_by_depth(),
+                             "total": c.collectives.total_bytes(iters)}
+                      for name, c in costs.items()}}
 
 
 # ---------------------------------------------------------------- builders
@@ -222,6 +246,8 @@ def _run_torch(rank):
                    "stats": stats, "comm_bytes": eng.agents.comm_bytes,
                    "collectives": eng.agents.collectives,
                    "world_size": eng.agents.world_size}
+            if case["id"] in COST_CASES:
+                res.update(_costs(eng, st0, stats, case["seed"]))
             okey = (case["model"], case["topo"], case["window"], total,
                     case["seed"], case["state_seed"])
             if rank == 0:
@@ -259,6 +285,9 @@ def jax_main(out_path, part=0, parts=1):
             results[(case["id"], total)] = {
                 "state": {k: np.asarray(v) for k, v in out.items()},
                 "stats": stats}
+            if case["id"] in COST_CASES:
+                results[(case["id"], total)].update(
+                    _costs(eng, st0, stats, case["seed"]))
     with open(out_path, "wb") as f:
         pickle.dump(results, f)
 
