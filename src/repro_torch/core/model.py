@@ -28,6 +28,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.obs.profiler import annotate
+
 Recipes = Any    # dict of tensors with leading dim W
 State = Any      # dict of tensors
 Footprint = Any  # (read_ids, write_ids) int32 tensors, -1 padded
@@ -62,10 +64,11 @@ def scatter_rows(values: torch.Tensor, rows: torch.Tensor,
     ``mask[i]`` — the reference's ``.at[where(mask, rows, n)].set(...,
     mode="drop")``. Inactive tasks write to a scratch row past the end
     that is then cut off, so the update needs no host sync."""
-    n = values.shape[0]
-    ext = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
-    ext.index_put_((torch.where(mask, rows.long(), n),), new)
-    return ext[:n]
+    with annotate("protocol.scatter_rows"):
+        n = values.shape[0]
+        ext = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+        ext.index_put_((torch.where(mask, rows.long(), n),), new)
+        return ext[:n]
 
 
 class MABSModel(abc.ABC):

@@ -38,7 +38,7 @@ def prefix_conflicts(conflict_fn: Callable, recipes, valid: torch.Tensor,
     w = valid.shape[0]
     rows = {k: x[:, None] for k, x in recipes.items()}
     cols = {k: x[None, :] for k, x in recipes.items()}
-    with annotate("protocol.conflict_predicate", valid.device):
+    with annotate("protocol.conflict_predicate"):
         conf = conflict_fn(rows, cols, strict=strict)
     lower = torch.ones((w, w), dtype=torch.bool,
                        device=valid.device).tril(diagonal=-1)
@@ -51,14 +51,16 @@ def window_conflicts(model, recipes, valid: torch.Tensor, *,
     """Model-agnostic conflict matrix for one window: footprint models go
     through the conflict kernel, predicate-only models through the
     broadcast ``prefix_conflicts``. Both give the same [W, W] bool."""
-    fp = model.task_footprint(recipes)
-    if fp is not None:
-        from repro_torch.kernels.conflict.ops import conflict_matrix
+    with annotate("protocol.conflict"):
+        fp = model.task_footprint(recipes)
+        if fp is not None:
+            from repro_torch.kernels.conflict.ops import conflict_matrix
 
-        read_ids, write_ids = fp
-        return conflict_matrix(read_ids, write_ids, valid, strict=strict,
-                               backend=backend)
-    return prefix_conflicts(model.conflicts, recipes, valid, strict=strict)
+            read_ids, write_ids = fp
+            return conflict_matrix(read_ids, write_ids, valid,
+                                   strict=strict, backend=backend)
+        return prefix_conflicts(model.conflicts, recipes, valid,
+                                strict=strict)
 
 
 def cross_window_conflicts(model, recipes_prev, valid_prev: torch.Tensor,
@@ -77,19 +79,20 @@ def cross_window_conflicts(model, recipes_prev, valid_prev: torch.Tensor,
     Footprint models go through the conflict kernel's block entry point;
     predicate-only models through the broadcast pairwise predicate.
     """
-    fp_next = model.task_footprint(recipes_next)
-    if fp_next is not None:
-        from repro_torch.kernels.conflict.ops import conflict_block
+    with annotate("protocol.conflict_block"):
+        fp_next = model.task_footprint(recipes_next)
+        if fp_next is not None:
+            from repro_torch.kernels.conflict.ops import conflict_block
 
-        reads_n, writes_n = fp_next
-        reads_p, writes_p = model.task_footprint(recipes_prev)
-        return conflict_block(reads_n, writes_n, reads_p, writes_p,
-                              valid_next, valid_prev, strict=strict,
-                              backend=backend)
-    rows = {k: x[:, None] for k, x in recipes_next.items()}
-    cols = {k: x[None, :] for k, x in recipes_prev.items()}
-    conf = model.conflicts(rows, cols, strict=strict)
-    return conf & valid_next[:, None] & valid_prev[None, :]
+            reads_n, writes_n = fp_next
+            reads_p, writes_p = model.task_footprint(recipes_prev)
+            return conflict_block(reads_n, writes_n, reads_p, writes_p,
+                                  valid_next, valid_prev, strict=strict,
+                                  backend=backend)
+        rows = {k: x[:, None] for k, x in recipes_next.items()}
+        cols = {k: x[None, :] for k, x in recipes_prev.items()}
+        conf = model.conflicts(rows, cols, strict=strict)
+        return conf & valid_next[:, None] & valid_prev[None, :]
 
 
 def carry_frontier(cross: torch.Tensor,
@@ -104,7 +107,7 @@ def carry_frontier(cross: torch.Tensor,
     ``wave_levels(base=...)`` it pins every next-window task strictly
     after the tail waves it conflicts with. [W_next] int32.
     """
-    with annotate("protocol.carry_frontier", cross.device):
+    with annotate("protocol.carry_frontier"):
         gated = torch.where(cross,
                             levels_prev.to(torch.int32)[None, :] + 1, 0)
         if gated.shape[1] == 0:
@@ -128,7 +131,8 @@ def wave_levels(conflicts: torch.Tensor, valid: torch.Tensor, *,
     """
     from repro_torch.kernels.levels.ops import wave_levels as _wave_levels
 
-    return _wave_levels(conflicts, valid, base=base, backend=backend)
+    with annotate("protocol.levels"):
+        return _wave_levels(conflicts, valid, base=base, backend=backend)
 
 
 def wave_levels_capped(conflicts, valid, n_workers: int) -> np.ndarray:

@@ -36,13 +36,12 @@ def execute_window(model, state, recipes, valid: torch.Tensor, *,
     if levels is None:
         conf = window_conflicts(model, recipes, valid, strict=strict)
         levels = wave_levels(conf, valid)
-    n_waves = int(levels.max()) + 1  # the window's one host sync
-    dev = levels.device
-    with annotate("protocol.execute_window", dev), \
-            cost_loop(current_recorder()):
-        for w in range(n_waves):
-            with annotate("protocol.wave", dev):
-                state = model.execute_wave(state, recipes, levels == w)
+    with annotate("protocol.execute_window"):
+        n_waves = int(levels.max()) + 1  # the window's one host sync
+        with cost_loop(current_recorder()):
+            for w in range(n_waves):
+                with annotate("protocol.wave", wave=w):
+                    state = model.execute_wave(state, recipes, levels == w)
     return state, n_waves
 
 

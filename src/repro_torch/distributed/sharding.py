@@ -248,7 +248,7 @@ def halo_gather(local, halo: torch.Tensor, agents: AgentGroup, *,
     if halo.shape[0] == 0:
         out = {k: x.new_zeros((0,) + x.shape[1:]) for k, x in leaves.items()}
     else:
-        with annotate("protocol.halo_gather", agents.device):
+        with annotate("protocol.halo_gather"):
             lo, shard_n = agents.lo, agents.shard_n
             sel = (halo >= lo) & (halo < lo + shard_n)
             idx = torch.clamp(halo - lo, 0, shard_n - 1).long()
@@ -262,7 +262,7 @@ def halo_scatter(full: torch.Tensor, halo: torch.Tensor,
                  gathered: torch.Tensor) -> torch.Tensor:
     """A copy of ``full`` with rows ``halo`` refreshed from ``gathered``
     (-1 slots dropped; duplicate slots write identical values)."""
-    with annotate("protocol.halo_scatter", full.device):
+    with annotate("protocol.halo_scatter"):
         n = full.shape[0]
         ext = torch.cat([full, full.new_zeros((1,) + full.shape[1:])])
         ext.index_put_((torch.where(halo >= 0, halo, n).long(),), gathered)
@@ -343,7 +343,7 @@ def wave_halo_split(rows: torch.Tensor, levels: torch.Tensor, *,
     w_tasks, slots = rows.shape
     if n_chunks_max is None:
         n_chunks_max = -(-(w_tasks * slots) // chunk) + n_waves_max
-    with annotate("protocol.wave_halo_split", rows.device):
+    with annotate("protocol.wave_halo_split"):
         flat = rows.reshape(-1)
         key, ok = _slab_keys(rows, levels, n_waves_max)
         counts = _counts(key, ok, n_waves_max)
@@ -381,7 +381,7 @@ def wave_halo_gather(local, slabs: torch.Tensor, c0: int, c1: int, *,
     the reference's chunk loop (one depth deeper): ``c1 - c0`` units of
     one chunk each.
     """
-    with annotate("protocol.wave_halo_gather", agents.device), \
+    with annotate("protocol.wave_halo_gather"), \
             cost_loop(current_recorder()):
         slab = slabs[c0:c1].reshape(-1)
         return halo_gather(local, slab, agents, units=c1 - c0), slab

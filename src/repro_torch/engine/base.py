@@ -24,7 +24,9 @@ untraced branch of each step — no extra op and no host sync. With a
 tracer installed, the ``run``/``schedule``/``boundary``/``execute``
 spans of the reference are recorded, each fenced on its outputs, and
 each window's execute span is subdivided into width-attributed ``wave``
-spans.
+spans. Either way the schedule, its creation, the boundary and the
+record steps open ``protocol.*`` ranges (``obs.profiler.annotate``),
+which a profiler records and an installed tracer keeps as layer spans.
 
 Costs (``Engine.compiled_costs``, ``repro_torch.obs.costs``): the
 reference lowers its window executors ahead of time and reads XLA's cost
@@ -49,6 +51,7 @@ from repro_torch.core.records import (
     wave_levels,
     window_conflicts,
 )
+from repro_torch.obs.profiler import annotate
 from repro_torch.obs.stats import finalize_stats
 from repro_torch.obs.trace import TID_COMM, current_tracer
 from repro_torch.utils import prng
@@ -201,7 +204,8 @@ class WindowedEngine(Engine):
         kernel). Always W tasks: the last window is masked by ``valid``,
         as in the reference, so its schedule matches. Returns (recipes,
         valid, conf), all enqueued on the device, none waited for."""
-        recipes = self.model.create_tasks(base_key, start, self.window)
+        with annotate("protocol.create_tasks"):
+            recipes = self.model.create_tasks(base_key, start, self.window)
         valid = torch.arange(self.window, device=self.device) < count
         conf = window_conflicts(self.model, recipes, valid,
                                 strict=self.strict)
@@ -245,11 +249,13 @@ class WindowedEngine(Engine):
 
     def _dispatch_schedule(self, tr, base_key, start: int, count: int, *,
                            index: int, ov: bool = False):
-        """Enqueue one window's schedule, inside a fenced ``schedule``
-        span when tracing is on."""
+        """Enqueue one window's schedule in the range
+        ``protocol.schedule``, inside a fenced ``schedule`` span (which
+        opens that range) when tracing is on."""
         fn = self._schedule_ov if ov else self._schedule
         if tr is None:
-            return fn(base_key, start, count)
+            with annotate("protocol.schedule"):
+                return fn(base_key, start, count)
         with tr.span("schedule", index=index, start=start, count=count):
             sched = fn(base_key, start, count)
             block_all(sched)
@@ -415,8 +421,9 @@ class WindowedEngine(Engine):
                         min(self.window, total_tasks - t - k),
                         index=n_windows + 1, ov=True)
                     if tr is None:
-                        lv_nxt, b = self._boundary(cur[0], lv, nxt[0],
-                                                   nxt[1], nxt[2])
+                        with annotate("protocol.boundary"):
+                            lv_nxt, b = self._boundary(cur[0], lv, nxt[0],
+                                                       nxt[1], nxt[2])
                     else:
                         with tr.span("boundary", index=n_windows) as bsp:
                             lv_nxt, b = self._boundary(cur[0], lv, nxt[0],

@@ -275,7 +275,7 @@ class ShardedEngine(WindowedEngine):
         parts = [(rec, lv, self._owned(wa)) for rec, lv, wa in parts]
         with cost_loop(current_recorder()):
             for w in range(n_waves):
-                with annotate("protocol.wave", self.device):
+                with annotate("protocol.wave", wave=w):
                     full = view(local, w)
                     for rec, lv, owned in parts:
                         mask = lv == w
@@ -330,7 +330,7 @@ class ShardedEngine(WindowedEngine):
     def _execute(self, local, sched):
         recipes, levels, write_agents, halo, rows = sched
         parts = [(recipes, levels, write_agents)]
-        with annotate("protocol.execute_window", self.device):
+        with annotate("protocol.execute_window"):
             if self._use_split and rows is not None:
                 return self._run_split(local, parts, rows, levels, levels)
             n_waves = int(levels.max()) + 1  # the window's one host sync
@@ -344,7 +344,7 @@ class ShardedEngine(WindowedEngine):
         rec_a, _, _, (wa_a, halo_a, rows_a) = cur
         rec_b, _, _, (wa_b, halo_b, rows_b) = nxt
         parts = [(rec_a, lv_a, wa_a), (rec_b, lv_b, wa_b)]
-        with annotate("protocol.execute_pair", self.device):
+        with annotate("protocol.execute_pair"):
             if self._use_split and rows_a is not None:
                 # re-split at every boundary: the carry re-leveling moves
                 # window b's tasks between fused waves, and rebasing

@@ -46,18 +46,21 @@ class WavefrontEngine(WindowedEngine):
         wave count — the window's one host sync; a window whose tasks all
         ran early has none left and runs zero waves."""
         rec_a, rec_b = cur[0], nxt[0]
-        n_waves = int(lv_a.max()) + 1
-        with annotate("protocol.execute_pair", lv_a.device), \
-                cost_loop(current_recorder()):
-            for w in range(n_waves):
-                # fused wave: window k's tasks at level w, then window
-                # k+1's — the carry frontier keeps the two masks
-                # conflict-free
-                state = self.model.execute_wave(state, rec_a, lv_a == w)
-                state = self.model.execute_wave(state, rec_b, lv_b == w)
-        # rebase the next window onto the new level clock; executed (and
-        # invalid) tasks drop to -1
-        lv_b = torch.where(lv_b >= n_waves, lv_b - n_waves, -1)
+        with annotate("protocol.execute_pair"):
+            n_waves = int(lv_a.max()) + 1
+            with cost_loop(current_recorder()):
+                for w in range(n_waves):
+                    # fused wave: window k's tasks at level w, then window
+                    # k+1's — the carry frontier keeps the two masks
+                    # conflict-free
+                    with annotate("protocol.wave", wave=w):
+                        state = self.model.execute_wave(state, rec_a,
+                                                        lv_a == w)
+                        state = self.model.execute_wave(state, rec_b,
+                                                        lv_b == w)
+            # rebase the next window onto the new level clock; executed
+            # (and invalid) tasks drop to -1
+            lv_b = torch.where(lv_b >= n_waves, lv_b - n_waves, -1)
         return state, n_waves, lv_b
 
     def _trace_parts(self, sched, levels=None):

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core.model import MABSModel, scatter_rows
 from repro_torch.core.workersim import DESModel
 from repro_torch.kernels.axelrod import axelrod_wave
+from repro_torch.obs.profiler import annotate
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -131,8 +132,9 @@ class AxelrodModel(MABSModel):
         traits = state["traits"]
         src, tgt = recipes["src"].long(), recipes["tgt"].long()
         u, gumb = draws
-        new_t, interact = axelrod_wave(traits[src], traits[tgt], u, gumb,
-                                       mask, omega=self.cfg.omega)
+        with annotate("protocol.wave_kernel"):
+            new_t, interact = axelrod_wave(traits[src], traits[tgt], u,
+                                           gumb, mask, omega=self.cfg.omega)
         # whole target rows where interact, the rest to the scratch row
         # (no host sync). This equals the reference's one-feature scatter:
         # the interacting tasks of one wave have distinct targets
@@ -142,7 +144,9 @@ class AxelrodModel(MABSModel):
         return {"traits": scatter_rows(traits, tgt, new_t, interact)}
 
     def execute_wave(self, state, recipes, mask):
-        return self._apply(state, recipes, self._draws(recipes), mask)
+        with annotate("protocol.draws"):
+            draws = self._draws(recipes)
+        return self._apply(state, recipes, draws, mask)
 
     # ------------------------------------------------- DES model adapter
     def des_model(self, *, seed: int = 0, exec_cost=None, create_cost=None,

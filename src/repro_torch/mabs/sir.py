@@ -38,6 +38,7 @@ import torch
 from repro_torch.core.model import MABSModel, scatter_rows
 from repro_torch.core.workersim import DESModel
 from repro_torch.kernels.sir import sir_wave
+from repro_torch.obs.profiler import annotate
 from repro_torch.topology import Topology, ring
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -217,9 +218,10 @@ class SIRModel(MABSModel):
         if self._ring_k is None:
             nxt = self._transition(states, agents, u)
         else:
-            nxt = sir_wave(states, subset, u, n_agents=cfg.n_agents,
-                           k=self._ring_k, subset_size=s_sz, p_si=cfg.p_si,
-                           p_ir=cfg.p_ir, p_rs=cfg.p_rs)
+            with annotate("protocol.wave_kernel"):
+                nxt = sir_wave(states, subset, u, n_agents=cfg.n_agents,
+                               k=self._ring_k, subset_size=s_sz,
+                               p_si=cfg.p_si, p_ir=cfg.p_ir, p_rs=cfg.p_rs)
         new_states = scatter_rows(new_states, agents, nxt,
                                   (mask & (ttype == 0))[:, None])
         # type B: commit new states
@@ -228,7 +230,9 @@ class SIRModel(MABSModel):
         return {"states": states, "new_states": new_states}
 
     def execute_wave(self, state, recipes, mask):
-        return self._apply(state, recipes, self._draws(recipes), mask)
+        with annotate("protocol.draws"):
+            draws = self._draws(recipes)
+        return self._apply(state, recipes, draws, mask)
 
     # -------------------------------------------------- reference stepper
     def reference_step(self, state, base_key: torch.Tensor, step: int):

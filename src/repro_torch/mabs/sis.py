@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.model import MABSModel, scatter_rows
+from repro_torch.obs.profiler import annotate
 from repro_torch.topology import Topology
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -96,4 +97,6 @@ class SISModel(MABSModel):
         return {"states": scatter_rows(states, v, nxt, mask)}
 
     def execute_wave(self, state, recipes, mask):
-        return self._apply(state, recipes, self._draws(recipes), mask)
+        with annotate("protocol.draws"):
+            draws = self._draws(recipes)
+        return self._apply(state, recipes, draws, mask)

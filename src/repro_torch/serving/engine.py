@@ -175,7 +175,7 @@ class ServingEngine:
         t = len(chunk)
         batch = {"tokens": torch.as_tensor(
             np.asarray(chunk, np.int32), device=self.device)[None]}
-        with annotate("protocol.prefill_chunk", self.device):
+        with annotate("protocol.prefill_chunk"):
             logits, _ = self.model.prefill(
                 self.params, batch, self._gather_state(task["slot"]),
                 chunked=True, include_prefix=first)
@@ -191,7 +191,7 @@ class ServingEngine:
         for s in slots:
             last[s, 0] = self.active[s].out_tokens[-1]
             mask[s] = True
-        with annotate("protocol.decode_wave", self.device):
+        with annotate("protocol.decode_wave"):
             # every slot is computed, only the wave's are committed (the
             # conflict-free wave write)
             logits, _ = self.model.decode_step(

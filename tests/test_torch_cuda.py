@@ -470,6 +470,48 @@ def test_traced_run_on_card_equals_untraced(cuda_device, name):
     assert sum(e["args"]["width"] for e in waves) == 256 * 4
 
 
+def test_traced_profiled_run_shares_the_profilers_clock(cuda_device):
+    """Under the span tracer and torch.profiler at once on the card, each
+    window span agrees with its ``protocol.*`` range at both ends within
+    0.1 ms, and every layer span carries the stream time of its CUDA
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _small_models(cuda_device)["axelrod"]
+    state0 = model.init_state(prng.key(5, device=cuda_device),
+                              device=cuda_device)
+    cfg = ProtocolConfig(window=256)
+    for total in (256 * 2, 256 * 4):   # the first range of a process is slow
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with tracing() as tr:
+                run_engine(model, state0, total, seed=6, config=cfg,
+                           engine="wavefront_overlap", device=cuda_device)
+    base = prof.profiler.kineto_results.trace_start_ns()
+    events = tr.export(base_ns=base)["traceEvents"]
+    ranges = {}   # the host's ranges, not their projections on the device
+    for e in prof.events():
+        if e.name.startswith("protocol.") and e.device_type == DeviceType.CPU:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    opened, n = {}, 0
+    for e in events:
+        if e["tid"] != 0 or e["ph"] not in ("B", "E"):
+            continue
+        if e["ph"] == "B":
+            opened[e["name"]] = e["ts"]
+            continue
+        t0, t1 = opened.pop(e["name"]), e["ts"]
+        off = min(max(abs(a - t0), abs(b - t1))
+                  for a, b in ranges[f"protocol.{e['name']}"])
+        assert off < 100.0, (e["name"], off)   # µs
+        n += 1
+    assert n == 1 + 4 + 4 + 3       # run, schedule, execute, boundary
+    layers = [e for e in events if e["tid"] == 3 and e["ph"] == "X"]
+    assert layers and all(e["args"]["device_ms"] >= 0.0 for e in layers)
+
+
 # ------------------------------------------------------- flash and the LM
 FLASH_CASES = [  # b, h, hkv, t, s, d, causal, window
     (2, 4, 2, 128, 128, 64, True, None),

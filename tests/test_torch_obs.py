@@ -6,13 +6,17 @@ rejects what the reference's does; the span tracer is off by default,
 subdivides and exports as the reference's does, and its validator
 rejects the reference's malformed payloads; a traced run of each engine
 is bit-exact with the untraced one and records the reference's events
-(name, phase, category, thread and args — not the timestamps) for the
-same model, seed and window — for the sharded engines at world size 1
-also the execute spans' rung, the waves' per-rank ``owned`` counts and
-the comm thread's ``halo_gather`` spans (rung, rows, bytes), one per
-collective the run issued; with tracing off the engines reach none of
-the trace hooks; ``block_all``, ``median_time``, the profiler session and
-``provenance`` work on the CPU."""
+(name, phase, category, thread and args — not the timestamps) on the
+reference's threads (tids 0-2) for the same model, seed and window — for
+the sharded engines at world size 1 also the execute spans' rung, the
+waves' per-rank ``owned`` counts and the comm thread's ``halo_gather``
+spans (rung, rows, bytes), one per collective the run issued; the port's
+own layers thread (tid 3) holds one span per ``annotate`` range, each
+inside its window's span, and the process-wide totals the benchmark
+reads; with tracing off the engines reach none of the trace hooks, and
+``annotate`` neither a profiler range nor the tracer; the tracer and
+``torch.profiler`` share one clock; ``block_all``, ``median_time``, the
+profiler session and ``provenance`` work on the CPU."""
 import json
 import math
 
@@ -39,6 +43,7 @@ from repro_torch.engine import sequential as engine_sequential  # noqa: E402
 from repro_torch.engine import sharded as engine_sharded  # noqa: E402
 from repro_torch.engine import wavefront as engine_wavefront  # noqa: E402
 from repro_torch.obs import stats as PS  # noqa: E402
+from repro_torch.obs import trace as ptrace  # noqa: E402
 from repro_torch.obs.profiler import annotate, profile_session  # noqa: E402
 from repro_torch.utils import timing  # noqa: E402
 
@@ -143,7 +148,10 @@ def test_span_tracer_subdivide_and_export(tmp_path):
     assert [w["args"]["level"] for w in waves] == [0, 1]
     assert all(w["args"]["attributed"] for w in waves)
     meta = [e for e in on_disk["traceEvents"] if e["ph"] == "M"]
-    assert meta == [e for e in JO.SpanTracer().events() if e["ph"] == "M"]
+    assert ([e for e in meta if e["tid"] != ptrace.TID_LAYERS]
+            == [e for e in JO.SpanTracer().events() if e["ph"] == "M"])
+    assert [e["args"]["name"] for e in meta
+            if e["tid"] == ptrace.TID_LAYERS] == ["layers"]
     with pytest.raises(ValueError, match="closed span"):
         with tr.span("open") as sp_open:
             tr.subdivide(sp_open, "wave", [1], [{}])
@@ -192,12 +200,45 @@ def _models(name):
 
 
 def _by_thread(events):
-    """Events per thread in export order, without their timestamps."""
+    """Events per reference thread (tids 0-2) in export order, without
+    their timestamps; the port's layers thread is checked on its own."""
     out = {}
     for e in events:
-        out.setdefault(e["tid"], []).append(
-            {k: e.get(k) for k in ("name", "ph", "cat", "pid", "args")})
+        if e["tid"] != ptrace.TID_LAYERS:
+            out.setdefault(e["tid"], []).append(
+                {k: e.get(k) for k in ("name", "ph", "cat", "pid", "args")})
     return out
+
+
+def _window_spans(events):
+    """{(name, index): (ts, end)} of the B/E spans on the windows thread."""
+    out, stack = {}, []
+    for e in events:
+        if e["tid"] != 0 or e["ph"] not in ("B", "E"):
+            continue
+        if e["ph"] == "B":
+            stack.append(e)
+        else:
+            b = stack.pop()
+            out[(b["name"], b["args"].get("index"))] = (b["ts"], e["ts"])
+    return out
+
+
+def _check_layers(events):
+    """Every layer span (tid 3) is an X event inside the span of the
+    window its ``window`` arg names; returns them."""
+    layers = [e for e in events
+              if e["tid"] == ptrace.TID_LAYERS and e["ph"] != "M"]
+    spans = _window_spans(events)
+    for e in layers:
+        assert e["ph"] == "X" and e["name"].startswith("protocol.")
+        w = e["args"]["window"]
+        if w is None:
+            continue
+        inside = [(a, b) for (n, i), (a, b) in spans.items()
+                  if i == w and a <= e["ts"] and e["ts"] + e["dur"] <= b]
+        assert inside, f"{e['name']} outside every span of window {w}"
+    return layers
 
 
 @pytest.mark.parametrize("ename", ENGINES)
@@ -220,6 +261,8 @@ def test_traced_run_matches_reference(model, ename):
     payload = ptr.export()
     PO.validate_chrome_trace(payload)
     assert _by_thread(payload["traceEvents"]) == _by_thread(jtr.events())
+    layers = _check_layers(payload["traceEvents"])
+    assert layers
     names = {e["name"] for e in payload["traceEvents"]}
     assert {"run", "execute"} <= names
     if ename != "sequential":
@@ -256,12 +299,184 @@ def test_untraced_run_reaches_no_trace_hook(ename, monkeypatch):
         monkeypatch.setattr(engine_sharded.ShardedEngine, name, refuse)
     monkeypatch.setattr(engine_base, "block_all", refuse)
     monkeypatch.setattr(engine_sequential, "block_all", refuse)
-    monkeypatch.setattr(PO.SpanTracer, "span", refuse)
+    for name in ("span", "open_layer", "close_layer"):
+        monkeypatch.setattr(PO.SpanTracer, name, refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
     _, pm = _models("voter")
     ps0 = pm.init_state(torch.tensor([0, 1]), device=CPU)
     assert PO.current_tracer() is None
     _, stats = make_engine(ename, pm, window=16, device=CPU).run(ps0, 40)
     assert stats["total_tasks"] == 40
+
+
+# ------------------------------------------------------------ layer spans
+def _axelrod():
+    return PM.AxelrodModel(PM.AxelrodConfig(n_agents=200, n_features=5),
+                           device=CPU)
+
+
+def _port_model(name):
+    return _axelrod() if name == "axelrod" else _models(name)[1]
+
+
+def _count_calls(monkeypatch, cls, attr):
+    """Wrap ``cls.attr`` to count its calls."""
+    calls = []
+    orig = getattr(cls, attr)
+
+    def counted(self, *args, **kwargs):
+        calls.append(1)
+        return orig(self, *args, **kwargs)
+
+    monkeypatch.setattr(cls, attr, counted)
+    return calls
+
+
+#: scatter_rows calls per execute_wave: SIRS computes and commits
+SCATTERS = {"voter": 1, "sirs": 2, "axelrod": 1}
+
+
+@pytest.mark.parametrize("ename", ["wavefront", "wavefront_overlap"])
+@pytest.mark.parametrize("model", ["voter", "sirs", "axelrod"])
+def test_traced_run_records_layer_spans(model, ename, monkeypatch):
+    """One create_tasks span a window, one draws span per execute_wave
+    of a model that draws, as many scatter_rows spans as the waves make
+    calls, each inside the span of the window its ``window`` names; the
+    process-wide totals add what the block recorded."""
+    pm = _port_model(model)
+    s0 = pm.init_state(torch.tensor([0, 3]), device=CPU)
+    waves = _count_calls(monkeypatch, type(pm), "execute_wave")
+    ptrace.reset_layer_totals()
+    with PO.tracing() as tr:
+        _, stats = make_engine(ename, pm, window=16, device=CPU).run(
+            s0, 40, seed=4)
+    events = tr.export()["traceEvents"]
+    PO.validate_chrome_trace(events)
+    layers = _check_layers(events)
+    n = {}
+    for e in layers:
+        n[e["name"]] = n.get(e["name"], 0) + 1
+    windows = stats["n_windows"]
+    assert n["protocol.create_tasks"] == windows
+    assert n.get("protocol.draws", 0) == (0 if model == "voter"
+                                          else len(waves))
+    assert n["protocol.scatter_rows"] == SCATTERS[model] * len(waves)
+    assert n["protocol.wave"] == stats["total_waves"]
+    named = [e for e in layers if e["name"] in (
+        "protocol.create_tasks", "protocol.draws", "protocol.scatter_rows",
+        "protocol.wave", "protocol.wave_kernel")]
+    assert all(e["args"]["window"] is not None for e in named)
+    assert all("wave" in e["args"] for e in named
+               if e["name"] != "protocol.create_tasks")
+    creations = sorted(e["args"]["window"] for e in layers
+                       if e["name"] == "protocol.create_tasks")
+    assert creations == list(range(windows))
+    totals = ptrace.layer_totals()
+    assert totals["windows"] == windows
+    assert {k: v["count"] for k, v in totals["spans"].items()} == n
+    for v in totals["spans"].values():     # on the CPU device = host
+        assert v["device_ms"] == v["host_ms"] >= 0.0
+
+
+def test_layer_totals_sum_blocks_until_reset():
+    pm = _port_model("sirs")
+    s0 = pm.init_state(torch.tensor([0, 3]), device=CPU)
+    eng = make_engine("wavefront", pm, window=16, device=CPU)
+    ptrace.reset_layer_totals()
+    assert ptrace.layer_totals() == {"windows": 0, "spans": {}}
+    tr = PO.SpanTracer()
+    for _ in range(2):                     # one tracer, two blocks
+        with PO.tracing(tr):
+            eng.run(s0, 40, seed=4)
+    eng.run(s0, 40, seed=4)                # untraced: adds nothing
+    totals = ptrace.layer_totals()
+    assert totals["windows"] == 6
+    mine = tr.totals()
+    assert totals["spans"].keys() == mine["spans"].keys()
+    for k, v in totals["spans"].items():   # summed in another order
+        assert v == pytest.approx(mine["spans"][k])
+    assert totals["spans"]["protocol.create_tasks"]["count"] == 6
+    ptrace.reset_layer_totals()
+    assert ptrace.layer_totals() == {"windows": 0, "spans": {}}
+
+
+def test_annotate_off_reaches_neither_profiler_nor_tracer(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("annotate reached a hook with both off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    for name in ("span", "open_layer", "close_layer"):
+        monkeypatch.setattr(PO.SpanTracer, name, refuse)
+    assert PO.current_tracer() is None
+    with annotate("protocol.test") as a, annotate("protocol.wave", wave=3):
+        assert a is None
+    assert annotate("protocol.a") is annotate("protocol.b")
+
+
+#: the ranges a run of SIRS through wavefront_overlap opens
+RANGES = ("protocol.schedule", "protocol.create_tasks", "protocol.conflict",
+          "protocol.conflict_block", "protocol.carry_frontier",
+          "protocol.levels", "protocol.boundary", "protocol.execute_pair",
+          "protocol.execute_window", "protocol.wave", "protocol.draws",
+          "protocol.wave_kernel", "protocol.scatter_rows")
+
+
+def test_profile_holds_every_protocol_range():
+    from torch.profiler import ProfilerActivity, profile
+
+    pm = _port_model("sirs")
+    s0 = pm.init_state(torch.tensor([0, 3]), device=CPU)
+    eng = make_engine("wavefront_overlap", pm, window=16, device=CPU)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run(s0, 40, seed=4)
+    names = {e.name for e in prof.events()}
+    assert set(RANGES) <= names
+    assert not {"protocol.run", "protocol.execute"} & names  # untraced
+
+
+def test_tracer_and_profiler_share_one_clock():
+    """Under a tracer and a profiler at once, each window span of tid 0
+    opens the range ``protocol.<name>``, and the two agree at both ends
+    within 1 ms on the profiler's clock; layer spans match their ranges
+    the same way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pm = _port_model("axelrod")
+    s0 = pm.init_state(torch.tensor([0, 3]), device=CPU)
+    eng = make_engine("wavefront_overlap", pm, window=16, device=CPU)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with PO.tracing() as tr:
+            eng.run(s0, 40, seed=4)
+    base = prof.profiler.kineto_results.trace_start_ns()
+    events = tr.export(base_ns=base)["traceEvents"]
+    ranges: dict[str, list] = {}
+    for e in prof.events():
+        if e.name.startswith("protocol."):
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    spans = sorted(_window_spans(events).items(), key=lambda kv: kv[1])
+    names = set()
+    for (name, _), (t0, t1) in spans:
+        if name == "run":
+            continue
+        names.add(name)
+        got = ranges[f"protocol.{name}"]
+        assert min(abs(a - t0) + abs(b - t1) for a, b in got) < 1e3, name
+    assert names == {"schedule", "execute", "boundary"}
+    for (lo, hi) in [(e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e["tid"] == ptrace.TID_LAYERS and e["ph"] == "X"]:
+        assert lo >= 0 and hi >= lo
+    layer = [e for e in events if e["name"] == "protocol.create_tasks"]
+    for e in layer:
+        assert min(abs(a - e["ts"]) + abs(b - e["ts"] - e["dur"])
+                   for a, b in ranges["protocol.create_tasks"]) < 1e3
+    other = tr.export()
+    assert other["otherData"]["epoch_ns"] == tr.epoch_ns
+    assert tr.export(base_ns=base)["otherData"]["epoch_ns"] == base
+    shift = (tr.epoch_ns - base) / 1e3
+    first = next(e for e in other["traceEvents"] if "ts" in e)
+    assert any(e.get("ts") == pytest.approx(first["ts"] + shift)
+               for e in events)
 
 
 # ------------------------------------------- timing, profiler, provenance
@@ -295,7 +510,7 @@ def test_profile_session_labels_protocol_phases(tmp_path):
     text = (tmp_path / "prof" / "trace.json").read_text()
     for name in ("protocol.execute_window", "protocol.wave"):
         assert name in text
-    with annotate("protocol.test", CPU):   # no profiler: a no-op
+    with annotate("protocol.test"):   # no profiler: a no-op
         pass
 
 

@@ -28,6 +28,7 @@ from repro_torch import obs as PO  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels.flash import flash as flash_kernel  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.obs.trace import TID_LAYERS  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -235,10 +236,13 @@ def test_windowed_engine_matches_reference_engine():
 
 
 def _by_thread(events):
+    """Events per reference thread (tids 0-2); the port's layers thread
+    (tid 3) is checked on its own."""
     out = {}
     for e in events:
-        out.setdefault(e["tid"], []).append(
-            {k: e.get(k) for k in ("name", "ph", "cat", "pid", "args")})
+        if e["tid"] != TID_LAYERS:
+            out.setdefault(e["tid"], []).append(
+                {k: e.get(k) for k in ("name", "ph", "cat", "pid", "args")})
     return out
 
 
@@ -253,6 +257,18 @@ def test_traced_engine_matches_reference_events(smollm):
     assert names.count("run") == 1
     assert names.count("execute") == pe.iterations
     assert names.count("schedule") >= pe.iterations
+    # the layers thread: the scheduler's record check and levels, and one
+    # span per prefill chunk and decode wave, each labelled with its
+    # iteration (the last schedule finds no wave)
+    layers = [e for e in payload["traceEvents"]
+              if e["tid"] == TID_LAYERS and e["ph"] == "X"]
+    assert {e["name"] for e in layers} == {
+        "protocol.conflict_predicate", "protocol.levels",
+        "protocol.prefill_chunk", "protocol.decode_wave"}
+    assert all(0 <= e["args"]["window"] <= pe.iterations for e in layers)
+    assert (sum(e["name"] == "protocol.decode_wave" for e in layers)
+            == sum(1 for e in jtr.events() if e["name"] == "execute"
+                   and e["ph"] == "B" and e["args"]["decodes"]))
 
 
 def test_untraced_engine_opens_no_span(smollm, monkeypatch):
